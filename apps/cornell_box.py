@@ -34,7 +34,7 @@ def main():
     if args.pallas:
         from bpt_tpu.kernels.integration import attach_pallas_path
 
-        attach_pallas_path(r)
+        attach_pallas_path(r, interpret=args.interpret)
     run_and_save(r, cornell_camera(), args, "cornell_box")
 
 

@@ -20,9 +20,6 @@ PRESETS = {
 
 def main():
     p = base_parser("glTF model path tracer")
-    p.add_argument("--reorder", action="store_true",
-                   help="staged sorted-wavefront batches (ray reordering + "
-                        "multi-frame lane pools; fastest for divergent meshes)")
     p.add_argument("--pallas", action="store_true",
                    help="fused Pallas megakernel (textured models use the "
                         "deferred-PBR composition)")
@@ -47,7 +44,7 @@ def main():
     if args.pallas:
         from bpt_tpu.kernels.integration import attach_pallas_path
 
-        attach_pallas_path(r, reorder=args.reorder)
+        attach_pallas_path(r, interpret=args.interpret)
     run_and_save(r, gltf_camera(), args, f"gltf_{args.model}")
 
 

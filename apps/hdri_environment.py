@@ -33,9 +33,6 @@ def main():
                    help="'sun' = reference sun-lobe NEE; 'env' = luminance-"
                         "CDF importance sampling (fused path precomputes the "
                         "inverse-CDF draw planes per bounce)")
-    p.add_argument("--reorder", action="store_true",
-                   help="staged sorted-wavefront batches (ray reordering + "
-                        "multi-frame lane pools; fastest for divergent meshes)")
     p.add_argument("--pallas", action="store_true",
                    help="fused Pallas megakernel (textured models use the "
                         "deferred-PBR composition)")
@@ -67,7 +64,7 @@ def main():
     if args.pallas:
         from bpt_tpu.kernels.integration import attach_pallas_path
 
-        attach_pallas_path(r, reorder=args.reorder)
+        attach_pallas_path(r, interpret=args.interpret)
     run_and_save(r, hdri_camera(), args, f"hdri_{args.model}")
 
 

@@ -2,8 +2,7 @@
 
 Renders a target image of a textured glTF model (DamagedHelmet by default),
 re-initializes the albedo map to gray, and recovers it by gradient descent
-through the full path tracer — the capability the reference doesn't have and
-the TPU build exists for.
+through the full path tracer — the capability the reference doesn't have.
 """
 
 import sys, os
@@ -24,11 +23,6 @@ def main():
     p.add_argument("--pallas", action="store_true",
                    help="fused megakernel fwd+bwd (path-replay VJP + "
                         "deferred-composition texture gradients)")
-    p.add_argument("--reorder", action="store_true",
-                   help="with --pallas: staged sorted-wavefront fwd+bwd — "
-                        "all loss frames fuse into one lane pool whose VJP "
-                        "rides the permutations (fast path for divergent "
-                        "meshes)")
     args = p.parse_args()
     maybe_force_cpu(args)
 
@@ -66,20 +60,15 @@ def main():
 
     bn = jnp.asarray(blue_noise_table())
     rv = jnp.asarray([0.3, 0.7], jnp.float32)
-    import jax
-
-    interpret = args.pallas and jax.default_backend() != "tpu"
     target_scene, _ = build({"albedo": jnp.asarray(true_albedo)})
     target = render_avg(target_scene, camera, cfg, args.size, (1.0, 2.0), rv, bn,
-                        pallas=args.pallas, interpret=interpret,
-                        reorder=args.reorder)
+                        pallas=args.pallas, interpret=args.interpret)
 
     init = {"albedo": jnp.full_like(jnp.asarray(true_albedo), 0.5)}
     clip = lambda p: {"albedo": jnp.clip(p["albedo"], 0.0, 1.0)}
     result = optimize(
         build, init, target, cfg, args.size, steps=args.steps, lr=args.lr,
-        param_clip=clip, pallas=args.pallas, interpret=interpret,
-        reorder=args.reorder,
+        param_clip=clip, pallas=args.pallas, interpret=args.interpret,
     )
     losses = np.asarray(result.losses)
     err0 = float(np.abs(np.asarray(init["albedo"]) - true_albedo).mean())

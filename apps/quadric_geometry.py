@@ -28,7 +28,7 @@ def main():
     if args.pallas:
         from bpt_tpu.kernels.integration import attach_pallas_path
 
-        attach_pallas_path(r)
+        attach_pallas_path(r, interpret=args.interpret)
     run_and_save(r, quadric_camera(), args, "quadric_geometry")
 
 

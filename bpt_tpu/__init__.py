@@ -1,4 +1,4 @@
-"""bpt_tpu — a TPU-native differentiable path-tracing framework.
+"""bpt_tpu — a differentiable path-tracing framework in JAX.
 
 A from-scratch JAX/Pallas re-design of the capabilities of
 Kuldaen/Babylon.js-PathTracing-Renderer (a WebGL2 fragment-shader progressive
@@ -15,7 +15,7 @@ Subpackage map (reference analog in parentheses):
   scenes      scene data + SetupScene analogs (per-demo *_FragmentShader.js)
   accel       BVH build + traversal           (BVH_Fast_Builder.js + GPU walk)
   io          glTF 2.0 / Radiance .hdr / PNG  (babylon.glTFFileLoader, loadHDR)
-  kernels     Pallas TPU megakernels          (the compiled fragment shader)
+  kernels     fused Pallas (Triton) megakernel (the compiled fragment shader)
   parallel    mesh sharding, halo exchange    (N/A in reference; new)
   diff        gradient estimators             (N/A in reference; new)
   utils       config, profiling               (dat.GUI / stats.js analogs)

@@ -1,22 +1,18 @@
-"""Clusterized preorder BVH layout for the Pallas packet-traversal kernel.
+"""Escape-linked BVH4 layout for the fused megakernel's in-loop walk.
 
 The reference walks a binary BVH per pixel with a 28-deep stack of
-(nodeID, boxT) pairs (/root/reference/js/GLTFModelPathTracing_FragmentShader.js:95,206-298).
-Per-lane divergent stacks require per-lane gathers of node data — the one
-memory shape the TPU vector unit cannot do (Mosaic: gathers only within a
-single vreg).  So the TPU-native layout inverts the loop: the *packet* (a
-tile of rays) walks ONE node per step, fetched by a scalar index, and every
-test is a vector op over the whole tile.  Subtree skipping then needs no
-stack at all: because the builder's flat layout is already preorder
-(left child = parent + 1, BVH_Fast_Builder.js:389-404), "skip this subtree"
-is just "jump to the node after it" — the classic escape-link / threaded
-BVH.  Leaves are widened to `leaf_size` triangles so the scalar-fetch
-overhead amortizes over a vectorized Möller-Trumbore burst.
+(nodeID, boxT) pairs (GLTFModelPathTracing_FragmentShader.js:95,206-298).
+The fused kernel instead walks ONE node per step for a whole block of rays
+sharing a scalar cursor, reading node and triangle values by scalar loads;
+subtree skipping then needs no stack at all: because the layout is preorder,
+"skip this subtree" is just "jump to the record after it" — the classic
+escape-link / threaded BVH.  Leaves are widened to `leaf_size` triangles so
+the per-step overhead amortizes over a burst of triangle tests.
 
 This module is the host-side (numpy) packing pass: collapse the binary tree
-into clustered leaves, compute escape links, reorder triangles into
-contiguous leaf ranges, and pack node/triangle records into the row layouts
-the kernel reads with `pl.ds` scalar indexing.
+into clustered leaves, collapse that into a 4-ary tree with inlined leaf
+children, reorder triangles into contiguous leaf ranges, and pack node and
+triangle records into the row layouts the kernel reads.
 """
 
 from __future__ import annotations
@@ -28,275 +24,11 @@ import numpy as np
 from bpt_tpu.accel.builder import BuiltBVH
 
 
-class DenseClusteredBVH(NamedTuple):
-    """Lane-dense variant of ClusteredBVH for the fused megakernel's in-loop
-    walk (bpt_tpu.kernels.megakernel).
+class Bvh4BVH(NamedTuple):
+    """4-ary escape-linked BVH with inlined leaf children.
 
-    The (T, 32) row layout of ClusteredBVH wastes 3/4 of each 128-lane VMEM
-    row; here every row packs FOUR 32-float triangle records, and each leaf's
-    triangle range is padded (with degenerate all-zero records, which
-    Möller-Trumbore rejects via t <= 0) to a whole number of rows, so the
-    kernel's leaf burst walks rows with *static* lane offsets 0/32/64/96 —
-    no dynamic lane slicing anywhere.
-    """
-
-    nodes_f: np.ndarray  # (Np, 16) f32: min.xyz, max.xyz, escape, row_start,
-    #   row_count, pad... — the link fields ride the float row (exact: all
-    #   < 2^24), because TPU SMEM burns 128 bytes per scalar and a mesh-sized
-    #   int table would blow its 1 MB; the kernel extracts them back to
-    #   scalars from the VMEM row load
-    tris: np.ndarray  # (Rp, 128) f32: 4 x [p0 p1 p2 n0 n1 n2 uv0 uv1 uv2 pad8]
-    tri_order: np.ndarray  # (R*4,) i32: packed slot -> original tri id, -1 pad
-    n_nodes: int
-    n_rows: int
-
-
-class OctDenseClusteredBVH(NamedTuple):
-    """DenseClusteredBVH plus EIGHT near-first escape-link orderings.
-
-    The escape-linked walk has no stack, so its visit order is frozen at
-    pack time — plain preorder visits geometry in arbitrary depth order and
-    t_best tightens late, which is what makes concave meshes (DamagedHelmet)
-    expensive: far subtrees get tested before the occluder in front of them.
-    Near-first ordering is direction-dependent, but only through the SIGN of
-    the ray direction along each node's child-separation axis — so eight
-    precomputed orderings (one per direction octant) cover every ray
-    exactly, and a direction-sorted packet walks the single ordering that
-    matches its (majority) octant.  All eight layouts reference ONE shared
-    triangle-row table; only the (Np, 16) node table is replicated."""
-
-    nodes_f: np.ndarray  # (Np, 16) preorder layout (HBM-walk compatible)
-    nodes_oct: np.ndarray  # (8 * Np, 16): near-first layout per octant
-    tris: np.ndarray  # (Rp, 128) shared dense rows
-    tri_order: np.ndarray  # (Rp*4,) packed slot -> original tri id
-    n_nodes: int  # Np (padded, per layout)
-    n_rows: int
-
-
-class ClusteredBVH(NamedTuple):
-    """Preorder escape-linked BVH with multi-triangle leaves, padded for the
-    kernel's row layouts."""
-
-    nodes_f: np.ndarray  # (Np, 8) f32: min.xyz, max.xyz, 0, 0
-    nodes_i: np.ndarray  # (Np, 4) i32: escape, tri_start, tri_count, 0
-    tris: np.ndarray  # (Tp, 32) f32: p0 p1 p2 n0 n1 n2 (9+9) uv0 uv1 uv2 (6), pad
-    tri_order: np.ndarray  # (T,) i32: reordered slot -> original triangle id
-    n_nodes: int  # real (unpadded) node count
-    n_tris: int  # real (unpadded, reordered) triangle count
-
-
-def clusterize_bvh(bvh: BuiltBVH, leaf_size: int = 64) -> tuple:
-    """Collapse a flat binary BVH (1 tri/leaf) into a preorder escape-linked
-    tree whose leaves hold up to `leaf_size` triangles.
-
-    Returns (node_min (N,3) f32, node_max (N,3) f32,
-             rec (N,3) i32 rows [escape, tri_start, tri_count],
-             tri_order (T,) i32).
-    """
-    node_tri = np.asarray(bvh.node_tri)
-    node_right = np.asarray(bvh.node_right)
-    node_min = np.asarray(bvh.node_min)
-    node_max = np.asarray(bvh.node_max)
-    n = len(node_tri)
-
-    # Subtree triangle counts: the array is preorder (left = i + 1), so a
-    # reverse scan sees both children before the parent.
-    count = np.zeros(n, np.int64)
-    for i in range(n - 1, -1, -1):
-        if node_tri[i] >= 0:
-            count[i] = 1
-        else:
-            count[i] = count[i + 1] + count[node_right[i]]
-
-    out_min, out_max, rec = [], [], []
-    tri_order: list = []
-
-    def leaves_of(i: int) -> list:
-        """Preorder triangle ids of subtree i (iterative)."""
-        ids, st = [], [i]
-        while st:
-            j = st.pop()
-            if node_tri[j] >= 0:
-                ids.append(int(node_tri[j]))
-            else:
-                st.append(int(node_right[j]))  # popped second
-                st.append(j + 1)  # popped first -> left-first order
-        return ids
-
-    # Iterative preorder emit with escape patching: stack entries are either
-    # ("visit", src_node) or ("close", out_index) — a close patches the
-    # node's escape to the output length once its whole subtree is emitted.
-    stack = [("visit", 0)]
-    while stack:
-        op, x = stack.pop()
-        if op == "close":
-            rec[x][0] = len(rec)
-            continue
-        my = len(rec)
-        out_min.append(node_min[x])
-        out_max.append(node_max[x])
-        rec.append([0, 0, 0])
-        stack.append(("close", my))
-        if node_tri[x] >= 0 or count[x] <= leaf_size:
-            ids = leaves_of(x)
-            rec[my][1] = len(tri_order)
-            rec[my][2] = len(ids)
-            tri_order.extend(ids)
-        else:
-            # preorder: left subtree first -> push right first.
-            stack.append(("visit", int(node_right[x])))
-            stack.append(("visit", x + 1))
-
-    return (
-        np.asarray(out_min, np.float32),
-        np.asarray(out_max, np.float32),
-        np.asarray(rec, np.int32),
-        np.asarray(tri_order, np.int32),
-    )
-
-
-def pack_clustered(
-    bvh: BuiltBVH,
-    p0: np.ndarray,
-    p1: np.ndarray,
-    p2: np.ndarray,
-    n0: np.ndarray,
-    n1: np.ndarray,
-    n2: np.ndarray,
-    uv0: np.ndarray,
-    uv1: np.ndarray,
-    uv2: np.ndarray,
-    leaf_size: int = 64,
-) -> ClusteredBVH:
-    """Full packing: clusterize + reorder triangle records into the kernel's
-    (T, 32) row layout, pad row counts to sublane multiples."""
-    node_min, node_max, rec, tri_order = clusterize_bvh(bvh, leaf_size)
-    n_nodes = len(rec)
-    n_tris = len(tri_order)
-
-    npad = -n_nodes % 8
-    nodes_f = np.zeros((n_nodes + npad, 8), np.float32)
-    nodes_f[:n_nodes, 0:3] = node_min
-    nodes_f[:n_nodes, 3:6] = node_max
-    # Padding rows: escape past the PADDED end.  An escape equal to the
-    # row's own index (the old `= n_nodes` when npad > 0) self-loops: the
-    # kernel's while_loop only stops at i >= padded length, so a real escape
-    # of n_nodes landing on a pad row span forever — a TPU watchdog kill.
-    # Pad rows stay inner (cnt = 0) with a degenerate zero AABB: a spurious
-    # hit just steps i+1 through the (< 8) pad rows to termination.
-    nodes_i = np.zeros((n_nodes + npad, 4), np.int32)
-    nodes_i[:n_nodes, :3] = rec
-    nodes_i[n_nodes:, 0] = n_nodes + npad
-
-    tpad = -n_tris % 8
-    tris = np.zeros((n_tris + tpad, 32), np.float32)
-    o = tri_order
-    tris[:n_tris, 0:3] = p0[o]
-    tris[:n_tris, 3:6] = p1[o]
-    tris[:n_tris, 6:9] = p2[o]
-    tris[:n_tris, 9:12] = n0[o]
-    tris[:n_tris, 12:15] = n1[o]
-    tris[:n_tris, 15:18] = n2[o]
-    tris[:n_tris, 18:20] = uv0[o]
-    tris[:n_tris, 20:22] = uv1[o]
-    tris[:n_tris, 22:24] = uv2[o]
-    return ClusteredBVH(nodes_f, nodes_i, tris, tri_order, n_nodes, n_tris)
-
-
-def pack_clustered_dense(
-    bvh: BuiltBVH,
-    p0: np.ndarray,
-    p1: np.ndarray,
-    p2: np.ndarray,
-    n0: np.ndarray,
-    n1: np.ndarray,
-    n2: np.ndarray,
-    uv0: np.ndarray,
-    uv1: np.ndarray,
-    uv2: np.ndarray,
-    leaf_size: int = 16,
-    tri_attr: np.ndarray | None = None,
-) -> DenseClusteredBVH:
-    """Clusterize + pack into the fused megakernel's 4-triangles-per-row
-    layout (see DenseClusteredBVH).
-
-    ``tri_attr``: optional (T, <=8) per-triangle attribute floats placed in
-    the record's free slots 24..31 — the fused kernel's PBR material-decision
-    attributes (see scenes.gltf_scene.bake_triangle_attrs)."""
-    # The HBM-streaming walk (kernels.traverse) DMAs a FIXED window of
-    # _HBM_LEAF_ROWS = 16 rows per leaf; a leaf wider than 16 rows (64 tris)
-    # would silently read stale scratch rows beyond the copy.  Fail loudly
-    # at pack time instead (advisor r3 finding).
-    if leaf_size > 64:
-        raise ValueError(
-            f"leaf_size={leaf_size} > 64 exceeds the 16-row per-leaf DMA "
-            "window of the HBM-streaming walk (kernels.traverse._HBM_LEAF_ROWS)"
-        )
-    node_min, node_max, rec, tri_order = clusterize_bvh(bvh, leaf_size)
-    n_nodes = len(rec)
-
-    # Re-emit each leaf's triangle range padded to a multiple of 4 slots.
-    slots: list = []
-    rec_d = np.zeros((n_nodes, 3), np.int64)
-    for i in range(n_nodes):
-        esc, s, c = rec[i]
-        rec_d[i, 0] = esc
-        if c > 0:
-            rec_d[i, 1] = len(slots) // 4  # row_start
-            rec_d[i, 2] = (c + 3) // 4  # row_count
-            slots.extend(int(t) for t in tri_order[s:s + c])
-            slots.extend([-1] * (-c % 4))
-    n_rows = len(slots) // 4
-    # pad to a sublane multiple PLUS the HBM-streaming walk's fixed leaf-DMA
-    # window (kernels.traverse._HBM_LEAF_ROWS = 16), so a leaf copy may read
-    # past its own rows but never past the table — no per-call re-padding
-    rpad = (-n_rows % 8) + 16
-    order = np.asarray(slots + [-1] * (rpad * 4), np.int32)
-
-    rows = np.zeros((n_rows + rpad, 128), np.float32)
-    rec32 = np.zeros((len(order), 32), np.float32)
-    real = order >= 0
-    o = order[real]
-    rec32[real, 0:3] = p0[o]
-    rec32[real, 3:6] = p1[o]
-    rec32[real, 6:9] = p2[o]
-    rec32[real, 9:12] = n0[o]
-    rec32[real, 12:15] = n1[o]
-    rec32[real, 15:18] = n2[o]
-    rec32[real, 18:20] = uv0[o]
-    rec32[real, 20:22] = uv1[o]
-    rec32[real, 22:24] = uv2[o]
-    if tri_attr is not None:
-        na = tri_attr.shape[1]
-        assert na <= 8, "only 8 free floats per 32-float record"
-        rec32[real, 24:24 + na] = tri_attr[o]
-    rows[:] = rec32.reshape(n_rows + rpad, 128)
-
-    npad = -n_nodes % 8
-    # float-encoded links are exact only below 2^24; fail loudly, not with
-    # silently-corrupt traversal (advisor r2 finding)
-    if max(n_nodes + npad, n_rows + rpad) >= 1 << 24:
-        raise ValueError(
-            f"mesh too large for the float-linked dense pack: "
-            f"{n_nodes + npad} nodes / {n_rows + rpad} rows >= 2^24; "
-            f"use the wavefront / packet-kernel path"
-        )
-    nodes_f = np.zeros((n_nodes + npad, 16), np.float32)
-    nodes_f[:n_nodes, 0:3] = node_min
-    nodes_f[:n_nodes, 3:6] = node_max
-    nodes_f[:n_nodes, 6:9] = rec_d  # escape, row_start, row_count (exact f32)
-    # Pad rows: zero AABB (a spurious hit just steps i+1 to termination;
-    # escaping to the row's own index would self-loop — see pack_clustered).
-    nodes_f[n_nodes:, 6] = n_nodes + npad
-    return DenseClusteredBVH(nodes_f, rows, order, n_nodes, n_rows)
-
-
-class Bvh4OctBVH(NamedTuple):
-    """4-ary escape-linked BVH with inlined leaf children, plus the eight
-    octant near-first layouts — the round-5 walk format.
-
-    The binary escape walk spends one ~20 ns scalar step per node visited:
-    one row load, ONE slab test, one any-reduce.  Collapsing to BVH4 packs
+    A binary escape walk spends one step per node visited: one record
+    load, ONE slab test, one block-wide any-reduce.  Collapsing to BVH4 packs
     FOUR child AABBs into one 32-float record, so each step makes a 4-way
     decision (4 slab tests amortize the same row load / step overhead), and
     leaf children are inlined in the parent record (meta < 0 encodes
@@ -304,48 +36,27 @@ class Bvh4OctBVH(NamedTuple):
     triangle rows are processed at the parent's step.  Node count drops to
     the INNER nodes of the 4-ary tree (~1/6 of the padded binary table).
 
-    Record layout, (Np4, 32) f32 per ordering:
+    Record layout, (N4, 32) f32, preorder:
       [ 0..23]  4x child AABB (min.xyz, max.xyz); absent children get the
                 never-hit box (min=+1e30, max=-1e30)
       [24..27]  child meta: >= 0 -> inner child's record id;
-                < 0 -> inlined leaf, -(woop_row_start * 32 + woop_row_count)
-                (WOOP-row units; the dense interp rows of woop row w are
-                rows 2w and 2w+1 — leaves are 8-slot aligned)
+                < 0 -> inlined leaf, -(row_start * 32 + row_count) in
+                triangle rows (leaves are 4-slot aligned, one row each)
       [28]      escape (next record after this subtree)
       [29..31]  pad (0)
-    All links are float-encoded (exact < 2^24, checked).  Children sit in
-    near-first order per octant layout.
+    All links are float-encoded (exact < 2^24, checked)."""
 
-    ``woop``: the round-5 leaf-test format — (Rp/2, 128) rows of EIGHT
-    affine unit-triangle transforms (Woop), 16 floats per tri:
-      [0:9]  A = inv([e1 e2 n]) row-major (n = e1 x e2)
-      [9:12] b = -A @ p0
-      [12]   original triangle id (float, exact < 2^24)
-      [13:16] pad
-    For a ray (ro, rd): o' = A@ro + b, d' = A@rd, t = -o'z/d'z,
-    u = o'x + t d'x, v = o'y + t d'y — ~40 vector ops per triangle vs ~85
-    for Moller-Trumbore-with-interpolation, and 8 tris per row load.  The
-    walker tests woop rows for REJECTION and reads the dense rows (2w,
-    2w+1) only when a row actually improves some lane ('interp on
-    improve').  Degenerate/pad slots store A = b = 0 -> t = 0 -> miss."""
-
-    nodes_f: np.ndarray  # (Np4, 32) preorder layout
-    nodes_oct: np.ndarray  # (8 * Np4, 32) near-first per octant
-    tris: np.ndarray  # (Rp, 128) shared dense rows
-    tri_order: np.ndarray  # (Rp*4,) packed slot -> original tri id
-    n_nodes: int  # Np4 (padded, per layout)
+    nodes_f: np.ndarray  # (N4, 32) preorder records
+    tris: np.ndarray  # (R, 128) triangle rows, 4 records each
+    tri_order: np.ndarray  # (R*4,) packed slot -> original tri id
+    n_nodes: int  # N4
     n_rows: int
-    woop: np.ndarray = None  # (Rp/2, 128) Woop leaf-test rows
 
 
-def _collapse_binary(bvh: BuiltBVH, leaf_size: int, slot_align: int = 4):
+def _collapse_binary(bvh: BuiltBVH, leaf_size: int):
     """Collapse the flat 1-tri-leaf binary BVH into the clustered binary
-    tree + shared dense triangle row table (the common prefix of
-    pack_clustered_dense_oct and pack_bvh4_oct; identical tri ordering).
-
-    ``slot_align``: pad each leaf's slot run to this multiple (4 = one
-    dense row; 8 = one Woop row == two dense rows, keeping every leaf's
-    dense range even-aligned for the 2:1 woop<->dense row mapping)."""
+    tree + triangle slot order (leaf cid order == preorder), each leaf's
+    slot run padded to whole 4-record rows."""
     node_tri = np.asarray(bvh.node_tri)
     node_right = np.asarray(bvh.node_right)
     node_min = np.asarray(bvh.node_min)
@@ -401,17 +112,16 @@ def _collapse_binary(bvh: BuiltBVH, leaf_size: int, slot_align: int = 4):
         if cleft[cid] < 0:
             row_of[cid] = (len(slots) // 4, (c + 3) // 4)
             slots.extend(int(t) for t in tri_order_raw[s:s + c])
-            slots.extend([-1] * (-c % slot_align))
+            slots.extend([-1] * (-c % 4))
     n_rows = len(slots) // 4
     return cmin, cmax, cleft, cright, row_of, slots, n_rows
 
 
 def _pack_rows(slots, n_rows, p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, tri_attr):
-    """Dense (Rp, 128) triangle row table from packed slot ids (shared by
-    all dense packers; over-padded 16 rows for the leaf DMA window)."""
-    rpad = (-n_rows % 8) + 16
-    order = np.asarray(slots + [-1] * (rpad * 4), np.int32)
-    rows = np.zeros((n_rows + rpad, 128), np.float32)
+    """(R, 128) triangle row table from packed slot ids: four 32-float
+    records per row, [p0 p1 p2 n0 n1 n2 uv0 uv1 uv2 attr8]; pad slots are
+    all-zero records, which the triangle test rejects (t <= 0)."""
+    order = np.asarray(slots, np.int32)
     rec32 = np.zeros((len(order), 32), np.float32)
     real = order >= 0
     o = order[real]
@@ -428,40 +138,10 @@ def _pack_rows(slots, n_rows, p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, tri_attr):
         na = tri_attr.shape[1]
         assert na <= 8, "only 8 free floats per 32-float record"
         rec32[real, 24:24 + na] = tri_attr[o]
-    rows[:] = rec32.reshape(n_rows + rpad, 128)
-    return rows, order, rpad
+    return rec32.reshape(n_rows, 128), order
 
 
-def _pack_woop_rows(order: np.ndarray, p0: np.ndarray, p1: np.ndarray,
-                    p2: np.ndarray) -> np.ndarray:
-    """(Rp/2, 128) Woop leaf-test rows (8 tris x 16 floats, see Bvh4OctBVH).
-
-    A = inv([e1 e2 n]) (n = e1 x e2), b = -A @ p0, computed in float64;
-    degenerate/pad slots get A = b = 0 (t evaluates to 0 -> miss)."""
-    n_slots = len(order)
-    assert n_slots % 8 == 0
-    rec = np.zeros((n_slots, 16), np.float32)
-    real = order >= 0
-    o = order[real]
-    e1 = (p1[o] - p0[o]).astype(np.float64)
-    e2 = (p2[o] - p0[o]).astype(np.float64)
-    nrm = np.cross(e1, e2)
-    M = np.stack([e1, e2, nrm], axis=-1)  # (T, 3, 3) columns
-    det = np.linalg.det(M)
-    good = np.abs(det) > 1e-30
-    A = np.zeros_like(M)
-    if good.any():
-        A[good] = np.linalg.inv(M[good])
-    b = -np.einsum("tij,tj->ti", A, p0[o].astype(np.float64))
-    sub = np.zeros((len(o), 16), np.float32)
-    sub[:, 0:9] = A.reshape(-1, 9).astype(np.float32)
-    sub[:, 9:12] = b.astype(np.float32)
-    sub[:, 12] = o.astype(np.float32)
-    rec[real] = sub
-    return rec.reshape(n_slots // 8, 128)
-
-
-def pack_bvh4_oct(
+def pack_bvh4(
     bvh: BuiltBVH,
     p0: np.ndarray,
     p1: np.ndarray,
@@ -474,28 +154,16 @@ def pack_bvh4_oct(
     uv2: np.ndarray,
     leaf_size: int = 16,
     tri_attr: np.ndarray | None = None,
-) -> Bvh4OctBVH:
-    """Collapse + pack into the BVH4 inlined-leaf layout (see Bvh4OctBVH);
-    triangle rows byte-identical to pack_clustered_dense_oct's."""
-    if leaf_size > 64:
-        raise ValueError("leaf_size > 64 exceeds the 16-row leaf DMA window")
-    cmin, cmax, cleft, cright, row_of, slots, n_rows = _collapse_binary(
-        bvh, leaf_size, slot_align=8
-    )
-    rows, order, rpad = _pack_rows(
-        slots, n_rows, p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, tri_attr
-    )
-    # dense rows come out even ((n_rows + rpad) % 2 == 0: leaves are 8-slot
-    # aligned and rpad = (-n_rows % 8) + 16), so the 2:1 woop<->dense row
-    # mapping is exact
-    assert (n_rows + rpad) % 2 == 0
-    woop = _pack_woop_rows(order, p0, p1, p2)
+) -> Bvh4BVH:
+    """Collapse + pack into the BVH4 inlined-leaf layout (see Bvh4BVH)."""
+    if leaf_size > 31 * 4:
+        raise ValueError("leaf_size > 124 overflows the 5-bit leaf row count")
+    cmin, cmax, cleft, cright, row_of, slots, n_rows = _collapse_binary(bvh, leaf_size)
+    rows, order = _pack_rows(slots, n_rows, p0, p1, p2, n0, n1, n2, uv0, uv1, uv2, tri_attr)
 
     def leaf_meta(cid):
         rs, rc = row_of[cid]
-        return -float((rs // 2) * 32 + (rc + 1) // 2)
-    n_bin = len(cmin)
-    ctr = [(np.asarray(cmin[i]) + np.asarray(cmax[i])) * 0.5 for i in range(n_bin)]
+        return -float(rs * 32 + rc)
 
     def kids4(x):
         """2-4 children of 4-ary node x (binary cids): an inner binary
@@ -510,10 +178,8 @@ def pack_bvh4_oct(
 
     NEVER = np.array([1e30, 1e30, 1e30, -1e30, -1e30, -1e30], np.float32)
 
-    def emit(sign):
-        """One layout: records for INNER 4-ary nodes only, children sorted
-        near-first along the octant direction (sign = per-axis ray-dir
-        positivity, None = natural order)."""
+    def emit():
+        """Preorder records for the INNER 4-ary nodes only."""
         rec = []  # each: np.float32[32]
         # stack ops: ("v", binary_cid, parent_rec, slot) / ("c", rec_idx)
         if cleft[0] < 0:
@@ -541,11 +207,6 @@ def pack_bvh4_oct(
                 if prec >= 0:
                     rec[prec][24 + slot] = float(my)
                 kids = kids4(x)
-                if sign is not None:
-                    d = np.array([1.0 if sign[a] else -1.0 for a in range(3)])
-                    # near-first: ascending signed centroid projection;
-                    # stable with child index as the tiebreak
-                    kids = sorted(kids, key=lambda c, d=d: (float(ctr[c] @ d),))
                 r = np.zeros(32, np.float32)
                 for k in range(4):
                     if k < len(kids):
@@ -556,7 +217,7 @@ def pack_bvh4_oct(
                 rec.append(r)
                 st.append(("c", my))
                 # leaf children inline; inner children emit in slot order
-                # (push reversed so the first sorted inner child pops first)
+                # (push reversed so the first inner child pops first)
                 inner = []
                 for k, c in enumerate(kids):
                     if cleft[c] < 0:
@@ -565,176 +226,10 @@ def pack_bvh4_oct(
                         inner.append((c, my, k))
                 for c, pr, k in reversed(inner):
                     st.append(("v", c, pr, k))
-        n4 = len(rec)
-        npad = -n4 % 8
-        out = np.zeros((n4 + npad, 32), np.float32)
-        out[:n4] = np.stack(rec)
-        # pad rows: inner with never-hit children, escape past the end
-        for k in range(4):
-            out[n4:, 6 * k:6 * k + 6] = NEVER
-        out[n4:, 28] = n4 + npad
-        return out
+        return np.stack(rec)
 
-    pre = emit(None)
-    layouts = [emit((bool(oc & 4), bool(oc & 2), bool(oc & 1))) for oc in range(8)]
-    n4p = pre.shape[0]
-    assert all(l.shape[0] == n4p for l in layouts)
-    if max(n4p, n_rows + rpad, n_rows * 32 + 64) >= 1 << 24:
+    nodes = emit()
+    n4 = nodes.shape[0]
+    if max(n4, n_rows * 32) >= 1 << 24:
         raise ValueError("mesh too large for the float-linked BVH4 pack")
-    nodes_oct = np.concatenate(layouts, axis=0)
-    return Bvh4OctBVH(pre, nodes_oct, rows, order, n4p, n_rows, woop)
-
-
-def pack_clustered_dense_oct(
-    bvh: BuiltBVH,
-    p0: np.ndarray,
-    p1: np.ndarray,
-    p2: np.ndarray,
-    n0: np.ndarray,
-    n1: np.ndarray,
-    n2: np.ndarray,
-    uv0: np.ndarray,
-    uv1: np.ndarray,
-    uv2: np.ndarray,
-    leaf_size: int = 16,
-    tri_attr: np.ndarray | None = None,
-) -> OctDenseClusteredBVH:
-    """Dense pack with the eight octant near-first orderings (see
-    OctDenseClusteredBVH).  The shared triangle rows and the preorder layout
-    are byte-identical to pack_clustered_dense's output."""
-    if leaf_size > 64:
-        raise ValueError("leaf_size > 64 exceeds the 16-row leaf DMA window")
-    node_tri = np.asarray(bvh.node_tri)
-    node_right = np.asarray(bvh.node_right)
-    node_min = np.asarray(bvh.node_min)
-    node_max = np.asarray(bvh.node_max)
-    n = len(node_tri)
-    count = np.zeros(n, np.int64)
-    for i in range(n - 1, -1, -1):
-        if node_tri[i] >= 0:
-            count[i] = 1
-        else:
-            count[i] = count[i + 1] + count[node_right[i]]
-
-    def leaves_of(i: int) -> list:
-        ids, st = [], [i]
-        while st:
-            j = st.pop()
-            if node_tri[j] >= 0:
-                ids.append(int(node_tri[j]))
-            else:
-                st.append(int(node_right[j]))
-                st.append(j + 1)
-        return ids
-
-    # ---- collapse into an explicit binary tree (preorder cid order, so
-    # the shared tri_order matches pack_clustered_dense exactly) ----------
-    cmin, cmax, cleft, cright, ctri = [], [], [], [], []
-    tri_order_raw: list = []
-    stack = [(0, -1, 0)]
-    while stack:
-        x, parent, slot = stack.pop()
-        cid = len(cmin)
-        cmin.append(node_min[x])
-        cmax.append(node_max[x])
-        cleft.append(-1)
-        cright.append(-1)
-        ctri.append((0, 0))
-        if parent >= 0:
-            if slot == 0:
-                cleft[parent] = cid
-            else:
-                cright[parent] = cid
-        if node_tri[x] >= 0 or count[x] <= leaf_size:
-            ids = leaves_of(x)
-            ctri[cid] = (len(tri_order_raw), len(ids))
-            tri_order_raw.extend(ids)
-        else:
-            stack.append((int(node_right[x]), cid, 1))  # popped second
-            stack.append((x + 1, cid, 0))  # popped first -> left-first
-    n_nodes = len(cmin)
-
-    # ---- shared dense rows: leaf cid order == preorder encounter order --
-    slots: list = []
-    row_of = {}  # leaf cid -> (row_start, row_count)
-    for cid in range(n_nodes):
-        s, c = ctri[cid]
-        if cleft[cid] < 0:
-            row_of[cid] = (len(slots) // 4, (c + 3) // 4)
-            slots.extend(int(t) for t in tri_order_raw[s:s + c])
-            slots.extend([-1] * (-c % 4))
-    n_rows = len(slots) // 4
-    rpad = (-n_rows % 8) + 16
-    order = np.asarray(slots + [-1] * (rpad * 4), np.int32)
-    rows = np.zeros((n_rows + rpad, 128), np.float32)
-    rec32 = np.zeros((len(order), 32), np.float32)
-    real = order >= 0
-    o = order[real]
-    rec32[real, 0:3] = p0[o]
-    rec32[real, 3:6] = p1[o]
-    rec32[real, 6:9] = p2[o]
-    rec32[real, 9:12] = n0[o]
-    rec32[real, 12:15] = n1[o]
-    rec32[real, 15:18] = n2[o]
-    rec32[real, 18:20] = uv0[o]
-    rec32[real, 20:22] = uv1[o]
-    rec32[real, 22:24] = uv2[o]
-    if tri_attr is not None:
-        na = tri_attr.shape[1]
-        assert na <= 8
-        rec32[real, 24:24 + na] = tri_attr[o]
-    rows[:] = rec32.reshape(n_rows + rpad, 128)
-
-    npad = -n_nodes % 8
-    np_pad = n_nodes + npad
-    if max(np_pad, n_rows + rpad) >= 1 << 24:
-        raise ValueError("mesh too large for the float-linked dense pack")
-    ctr = (np.asarray(cmin) + np.asarray(cmax)) * 0.5  # (Nc, 3)
-
-    def emit(sign=None):
-        """One layout: near-first child order for direction-octant ``sign``
-        (the child whose centroid lies earlier along the dominant separation
-        axis in the octant's direction sense goes first), or plain
-        left-first preorder when sign is None."""
-        mins, maxs, rec = [], [], []
-        st = [("v", 0)]
-        while st:
-            op, x = st.pop()
-            if op == "c":
-                rec[x][0] = len(rec)
-                continue
-            my = len(rec)
-            mins.append(cmin[x])
-            maxs.append(cmax[x])
-            if cleft[x] < 0:
-                rs, rc = row_of[x]
-                rec.append([0, rs, rc])
-            else:
-                rec.append([0, 0, 0])
-            st.append(("c", my))
-            if cleft[x] >= 0:
-                l, r = cleft[x], cright[x]
-                if sign is None:
-                    near, far = l, r
-                else:
-                    d = np.abs(ctr[l] - ctr[r])
-                    axis = int(np.argmax(d))
-                    near_left = (ctr[l][axis] <= ctr[r][axis]) == bool(sign[axis])
-                    near, far = (l, r) if near_left else (r, l)
-                st.append(("v", far))  # popped second
-                st.append(("v", near))  # popped first
-        out = np.zeros((np_pad, 16), np.float32)
-        out[:n_nodes, 0:3] = np.asarray(mins)
-        out[:n_nodes, 3:6] = np.asarray(maxs)
-        out[:n_nodes, 6:9] = np.asarray(rec, np.float32)
-        out[n_nodes:, 6] = np_pad  # pad rows escape past the end
-        return out
-
-    # preorder layout (== pack_clustered_dense) for the HBM-walk path
-    pre = emit(None)
-    # octant index bits: (rdx>0)<<2 | (rdy>0)<<1 | (rdz>0)
-    layouts = [
-        emit((bool(oc & 4), bool(oc & 2), bool(oc & 1))) for oc in range(8)
-    ]
-    nodes_oct = np.concatenate(layouts, axis=0)
-    return OctDenseClusteredBVH(pre, nodes_oct, rows, order, np_pad, n_rows)
+    return Bvh4BVH(nodes, rows, order, n4, n_rows)

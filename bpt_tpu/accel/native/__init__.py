@@ -1,8 +1,14 @@
-"""ctypes loader for the native BVH builder (compiles on first use)."""
+"""ctypes loader for the native BVH builder.
+
+The library is built from ``bvh_builder.cpp`` on first use, into a file
+named after the source's hash (so an edited source builds a new library);
+no binary is kept in version control.
+"""
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -10,18 +16,27 @@ from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "bvh_builder.cpp")
-_SO = os.path.join(_HERE, "libbvh_builder.so")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _failed = False
 
 
-def _compile() -> None:
+def _library_path() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return os.path.join(_HERE, f"libbvh_builder-{digest}.so")
+
+
+def _compile(so: str) -> None:
+    # build to a private name, then rename: concurrent first uses (test
+    # workers) never load a half-written library
+    tmp = f"{so}.{os.getpid()}.tmp"
     subprocess.run(
-        ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", _SO],
+        ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp],
         check=True,
         capture_output=True,
     )
+    os.replace(tmp, so)
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -31,9 +46,10 @@ def load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _failed:
             return _lib
         try:
-            if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-                _compile()
-            lib = ctypes.CDLL(_SO)
+            so = _library_path()
+            if not os.path.exists(so):
+                _compile(so)
+            lib = ctypes.CDLL(so)
             argtypes = [
                 ctypes.POINTER(ctypes.c_float),  # aabb_min
                 ctypes.POINTER(ctypes.c_float),  # aabb_max

@@ -1,12 +1,12 @@
-"""Vectorized BVH traversal (the SceneIntersect BVH walk, TPU-style).
+"""Vectorized BVH traversal (the SceneIntersect BVH walk as plain XLA).
 
 The reference walks the BVH per pixel with a 28-entry stack of
 (nodeID, boxT) pairs, visiting the nearer child first and pushing the
 farther one (/root/reference/js/GLTFModelPathTracing_FragmentShader.js:95,
 206-298).  Here the same ordered DFS runs as a *masked wavefront*: every
 live lane pops/visits one node per `lax.while_loop` step, all node/triangle
-reads are batched gathers, and lanes that finish idle until the whole front
-drains.  Per-lane stacks live in registers/VMEM as (..., DEPTH) arrays.
+reads are batched per-lane gathers, and lanes that finish idle until the
+whole front drains.  Per-lane stacks are (..., DEPTH) arrays.
 
 The ray is intersected in model object space with an *unnormalized*
 direction (like the reference, :201-204), so returned t values are directly
@@ -168,17 +168,6 @@ def traverse_bvh(
     return t_best, tri_best, u_best, v_best
 
 
-def _traversal_mode() -> str:
-    """How to walk the BVH: 'pallas' (packet kernel, TPU), 'interpret'
-    (packet kernel in interpreter mode, any backend), 'xla' (per-lane masked
-    wavefront), or 'auto' (pallas on TPU when the mesh carries a clusterized
-    pack and the wavefront is blockable, else xla).  Override with the
-    BPT_MESH_TRAVERSAL env var."""
-    import os
-
-    return os.environ.get("BPT_MESH_TRAVERSAL", "auto")
-
-
 def intersect_mesh_bvh(mesh: TriangleMesh, ro: jnp.ndarray, rd: jnp.ndarray, best: Hit, id_base: int, active: jnp.ndarray | None = None) -> Hit:
     """Model-space BVH walk + deferred attribute fetch, merged into `best`.
 
@@ -189,9 +178,6 @@ def intersect_mesh_bvh(mesh: TriangleMesh, ro: jnp.ndarray, rd: jnp.ndarray, bes
     (:334 — slots 6-7 are reserved-but-unused in the reference too);
     material type is PBR_MATERIAL when an albedo texture exists, else the
     model's uniform material (:336-343).
-
-    Dispatches to the Pallas packet-traversal kernel when available (see
-    `_traversal_mode`); both walks return the same closest hit.
     """
     ro_o = transform_point(mesh.inv_matrix, ro)
     rd_o = transform_dir(mesh.inv_matrix, rd)  # NOT normalized (t commensurate)
@@ -199,33 +185,6 @@ def intersect_mesh_bvh(mesh: TriangleMesh, ro: jnp.ndarray, rd: jnp.ndarray, bes
     has_albedo = mesh.albedo is not None
     # Double-sided iff untextured TRANSPARENT (GLTF...js:284-287).
     cull = jnp.logical_not((~jnp.asarray(has_albedo)) & (mesh.mat_type == TRANSPARENT))
-
-    mode = _traversal_mode()
-    from bpt_tpu.kernels.traverse import blockable
-
-    can_packet = mesh.pk_nodes_f is not None and blockable(ro.shape[:-1])
-    # Reference-capacity meshes (up to 524,288 tris): the VMEM-resident
-    # packet kernel caps out when the triangle table (~10 MB) or the SMEM
-    # node-link table (~0.9 MB) no longer fit on-chip — stream leaf rows
-    # from HBM instead (kernels.traverse.hbm_closest_hit).
-    needs_hbm = can_packet and (
-        mesh.pk_tris.size * 4 > 10 * 2**20
-        or mesh.pk_nodes_i.size * 4 > 9 * 2**20 // 10
-    ) and mesh.fz_nodes_f is not None
-    if mode == "auto":
-        import jax
-
-        mode = "pallas" if (can_packet and jax.default_backend() != "cpu") else "xla"
-    act = (jnp.ones(ro.shape[:-1], jnp.float32) if active is None
-           else active.astype(jnp.float32))
-    if mode in ("pallas", "interpret") and needs_hbm:
-        return _intersect_mesh_hbm(
-            mesh, ro_o, rd_o, cull, act, best, id_base, interpret=(mode == "interpret")
-        )
-    if mode in ("pallas", "interpret") and can_packet:
-        return _intersect_mesh_packet(
-            mesh, ro_o, rd_o, cull, act, best, id_base, interpret=(mode == "interpret")
-        )
 
     stack_depth = MAX_STACK_DEPTH
     t, tri, u, v = traverse_bvh(
@@ -273,78 +232,6 @@ def intersect_mesh_bvh(mesh: TriangleMesh, ro: jnp.ndarray, rd: jnp.ndarray, bes
         t,
         n_world,
         jnp.ones(ro.shape, ro.dtype),  # hitColor = vec3(1)
-        jnp.broadcast_to(mat, t.shape),
-        jnp.full_like(t, float(id_base)),
-        uv=uv,
-    )
-
-
-def _intersect_mesh_packet(mesh, ro_o, rd_o, cull, act, best: Hit, id_base: int, interpret: bool) -> Hit:
-    """Packet-kernel variant of the model section: the kernel already
-    interpolated the smooth normal and UV (the deferred attribute fetch),
-    so only the world-space normal transform and material pick remain."""
-    from bpt_tpu.kernels.traverse import packet_closest_hit
-
-    pack = (mesh.pk_nodes_f, mesh.pk_nodes_i, mesh.pk_tris)
-    t, n_obj, us, vs, tri = packet_closest_hit(
-        ro_o,
-        rd_o,
-        cull.astype(jnp.float32),
-        act,
-        pack,
-        int(mesh.pk_nodes_f.shape[0]),
-        interpret,
-    )
-    hit_ok = tri >= 0
-    uv = jnp.stack([us, vs], axis=-1)
-    n_obj = normalize(n_obj)
-    if mesh.normal_map is not None:
-        from bpt_tpu.textures import perturb_normal
-
-        n_obj = perturb_normal(n_obj, mesh.normal_map, uv, packed=mesh.normal_map_q)
-    n_world = normal_to_world(mesh.inv_matrix, n_obj)
-    has_albedo = mesh.albedo is not None
-    mat = jnp.where(
-        jnp.asarray(has_albedo), jnp.int32(PBR_MATERIAL), mesh.mat_type.astype(jnp.int32)
-    )
-    t = jnp.where(hit_ok, t, INFINITY)
-    return _merge(
-        best,
-        t,
-        n_world,
-        jnp.ones(ro_o.shape, ro_o.dtype),  # hitColor = vec3(1)
-        jnp.broadcast_to(mat, t.shape),
-        jnp.full_like(t, float(id_base)),
-        uv=uv,
-    )
-
-
-def _intersect_mesh_hbm(mesh, ro_o, rd_o, cull, act, best: Hit, id_base: int, interpret: bool) -> Hit:
-    """Reference-capacity variant of the packet walk: dense pack nodes in
-    VMEM, triangle rows DMA-streamed from HBM per leaf."""
-    from bpt_tpu.kernels.traverse import hbm_closest_hit
-
-    t, n_obj, us, vs, slot = hbm_closest_hit(
-        ro_o, rd_o, cull.astype(jnp.float32), act, mesh.fz_nodes_f, mesh.fz_tris,
-        interpret,
-    )
-    hit_ok = slot >= 0
-    uv = jnp.stack([us, vs], axis=-1)
-    n_obj = normalize(n_obj)
-    # NB: no per-texel perturb_normal here — the fz pack's vertex normals
-    # are already normal-map-baked (scenes.gltf_scene._bake_vertex_normal_map),
-    # and at this mesh scale per-vertex ≈ per-texel frequency anyway.
-    n_world = normal_to_world(mesh.inv_matrix, n_obj)
-    has_albedo = mesh.albedo is not None
-    mat = jnp.where(
-        jnp.asarray(has_albedo), jnp.int32(PBR_MATERIAL), mesh.mat_type.astype(jnp.int32)
-    )
-    t = jnp.where(hit_ok, t, INFINITY)
-    return _merge(
-        best,
-        t,
-        n_world,
-        jnp.ones(ro_o.shape, ro_o.dtype),  # hitColor = vec3(1)
         jnp.broadcast_to(mat, t.shape),
         jnp.full_like(t, float(id_base)),
         uv=uv,

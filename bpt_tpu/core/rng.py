@@ -17,7 +17,7 @@ We reproduce both bit-exactly as *counter-free, fixed-schedule* streams: every
 potential draw site in the integrator consumes a draw on every lane, so the
 stream position is a static function of (pixel, frame, site) rather than of
 the data-dependent branch history.  That is the property that makes the CPU
-jnp reference, the jitted TPU path, the Pallas megakernel and every sharded
+jnp reference, the jitted GPU path, the Pallas megakernel and every sharded
 layout consume *identical* random numbers — the keystone of the allclose
 validation required by /root/repo/BASELINE.json.  (The reference's stateful,
 branch-dependent call order cannot be reproduced lane-parallel without
@@ -67,8 +67,8 @@ def rng_next(state: RngState) -> tuple[jnp.ndarray, RngState]:
     """One draw of iq's hash (PathTracingCommon.js:502-508). Returns ([0,1), state).
 
     Float construction: mantissa bit-trick `bitcast((n >> 9) | 0x3F800000) - 1`
-    instead of the GLSL's `float(n) / float(0xffffffffU)` — Mosaic (Pallas
-    TPU) has no uint32→f32 convert, and the bitcast is exact and cheaper.
+    instead of the GLSL's `float(n) / float(0xffffffffU)` — the bitcast is
+    exact, cheap, and identical in every backend and in the Pallas kernel.
     Keeps the top 23 bits of the hash; marginal distribution is uniform
     [0, 1).  The jnp path uses the SAME construction so Pallas kernels and
     the reference integrator consume identical draws.
@@ -102,7 +102,7 @@ class BlueNoise(NamedTuple):
     with the fixed draw schedule (2 gates/bounce) the reference's mod-2 walk
     would hand every bounce the *same* pair of values; mod-4 halves that
     correlation at zero cost.  Parity only has to hold between our own CPU
-    reference and TPU/Pallas paths, which share this stream exactly.
+    reference and the GPU/Pallas paths, which share this stream exactly.
     """
 
     r: jnp.ndarray
@@ -135,9 +135,9 @@ def blue_noise_table(size: int = 256, path: str | None = None) -> np.ndarray:
     if key in _bn_cache:
         return _bn_cache[key]
     p = path or os.environ.get("BPT_BLUE_NOISE_PATH") or _BLUE_NOISE_PNG
-    if size == 256:
+    if size == 256 and os.path.exists(p):
         try:
-            from PIL import Image
+            from PIL import Image  # optional: only needed to read the asset
 
             with Image.open(p) as im:
                 arr = np.asarray(im.convert("RGBA"), np.float32) / 255.0

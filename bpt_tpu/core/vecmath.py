@@ -91,14 +91,16 @@ def transform_point(m: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     `m` is (..., 4, 4) in row-vector-on-the-right convention matching GLSL's
     column-major `mat4 * vec4` (i.e. result_i = sum_j m[i][j] * v[j] after
     accounting for GLSL storing columns — we store the mathematical matrix).
-    Batched as a matmul so XLA can route large pixel batches through the MXU.
+    Written as elementwise products and a sum, not a contraction: a float32
+    matmul may run in TF32 on a GPU, which keeps ~3 digits — enough to make
+    secondary rays self-intersect.
     """
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], p) + m[..., :3, 3]
+    return jnp.sum(m[..., :3, :3] * p[..., None, :], axis=-1) + m[..., :3, 3]
 
 
 def transform_dir(m: jnp.ndarray, d: jnp.ndarray) -> jnp.ndarray:
     """Apply a 4x4 matrix to directions: (m @ [d, 0]).xyz (no translation)."""
-    return jnp.einsum("...ij,...j->...i", m[..., :3, :3], d)
+    return jnp.sum(m[..., :3, :3] * d[..., None, :], axis=-1)
 
 
 def normal_to_world(inv_m: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
@@ -107,7 +109,7 @@ def normal_to_world(inv_m: jnp.ndarray, n: jnp.ndarray) -> jnp.ndarray:
     Reference: `normalize(transpose(mat3(uLeftSphereInvMatrix)) * hitNormal)`
     (/root/reference/js/BabylonPathTracing_FragmentShader.js:70).
     """
-    return normalize(jnp.einsum("...ji,...j->...i", inv_m[..., :3, :3], n))
+    return normalize(jnp.sum(inv_m[..., :3, :3] * n[..., :, None], axis=-2))
 
 
 def orthonormal_basis(w: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:

@@ -26,8 +26,7 @@ class OptimizeResult(NamedTuple):
 
 
 def render_avg(scene, camera, cfg, size, frames, rand_vec2, blue_noise,
-               pallas: bool = False, interpret: bool = False,
-               reorder: bool = False):
+               pallas: bool = False, interpret: bool = False):
     """Average of several 1-spp frames — the render op used on both sides of
     the inverse-rendering loss (matched RNG: frame ids are shared).
 
@@ -35,21 +34,8 @@ def render_avg(scene, camera, cfg, size, frames, rand_vec2, blue_noise,
     VJP instead of the wavefront integrator: texture-map gradients (the
     albedo recovery parameter) flow through the kernel's deferred texel
     composition by plain AD, material-color gradients through the
-    path-replay planes — fwd+bwd at fused-kernel speed.  ``reorder=True``
-    additionally fuses ALL the frames into ONE staged sorted lane pool
-    (trace_frames_pallas) whose VJP rides the state permutations — the
-    fast path for divergent textured meshes, gradient-equal to the
-    monolithic kernel (tests/test_fused_gradients.py)."""
-    if pallas and reorder:
-        from bpt_tpu.kernels.megakernel import trace_frames_pallas
-
-        fcs = jnp.asarray(list(frames), jnp.float32)
-        r = trace_frames_pallas(
-            scene, camera, cfg, size, size, fcs,
-            jnp.broadcast_to(jnp.asarray(rand_vec2), (len(frames), 2)),
-            blue_noise, interpret=interpret, differentiable=True,
-        )
-        return jnp.mean(r.color, axis=0)
+    path-replay planes.  ``interpret`` passes through to the kernel (the
+    Pallas interpreter instead of the GPU compile)."""
     if pallas:
         from bpt_tpu.kernels.megakernel import trace_image_pallas
 
@@ -82,7 +68,6 @@ def optimize(
     param_clip=None,
     pallas: bool = False,
     interpret: bool = False,
-    reorder: bool = False,
 ) -> OptimizeResult:
     """Adam loop: params -> scene -> render -> MSE(target).
 
@@ -98,7 +83,7 @@ def optimize(
     def loss_fn(params):
         scene, camera = build_scene(params)
         img = render_avg(scene, camera, cfg, size, frames, rv, bn,
-                         pallas=pallas, interpret=interpret, reorder=reorder)
+                         pallas=pallas, interpret=interpret)
         return jnp.mean((img - target) ** 2)
 
     opt = optax.adam(lr)

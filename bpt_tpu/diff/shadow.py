@@ -30,6 +30,8 @@ No reference analog (the reference does not differentiate at all).
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
 
@@ -38,6 +40,9 @@ from bpt_tpu.core.rng import blue_noise_fetch
 from bpt_tpu.core.vecmath import normalize
 from bpt_tpu.integrator.config import IntegratorConfig
 from bpt_tpu.scenes.types import Scene
+
+# float32 contractions at full precision: on a GPU the default may be TF32
+_einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 
 
 def quad_shadow_boundary_gradient(
@@ -126,8 +131,8 @@ def quad_shadow_boundary_gradient(
               + rr[:, None, None] * (jnp.cos(phis)[None, :, None] * u[:, None]
                                      + jnp.sin(phis)[None, :, None] * v[:, None]))
         dirv = pt - x[:, None]  # (P, F, 3)
-        denom = jnp.einsum("pfk,k->pf", dirv, ln)
-        tt = jnp.einsum("pk,k->p", lv0[None] - x, ln)[:, None] / jnp.where(
+        denom = _einsum("pfk,k->pf", dirv, ln)
+        tt = _einsum("pk,k->p", lv0[None] - x, ln)[:, None] / jnp.where(
             jnp.abs(denom) < 1e-9, jnp.where(denom < 0, -1e-9, 1e-9), denom)
         return x[:, None] + tt[..., None] * dirv, tt
 
@@ -143,17 +148,17 @@ def quad_shadow_boundary_gradient(
     # central projection of the sphere center
     c0, _r0 = center_fn(theta)
     dir_c = c0[None] - x
-    den_c = jnp.einsum("pk,k->p", dir_c, ln)
-    t_c = jnp.einsum("pk,k->p", lv0[None] - x, ln) / jnp.where(
+    den_c = _einsum("pk,k->p", dir_c, ln)
+    t_c = _einsum("pk,k->p", lv0[None] - x, ln) / jnp.where(
         jnp.abs(den_c) < 1e-9, jnp.where(den_c < 0, -1e-9, 1e-9), den_c)
     y_c = x + t_c[:, None] * dir_c  # (P, 3) blocked-region center
-    sgn = jnp.sign(jnp.einsum("pfk,pfk->pf", nrm, y - y_c[:, None]))
+    sgn = jnp.sign(_einsum("pfk,pfk->pf", nrm, y - y_c[:, None]))
     nrm = nrm * jnp.where(sgn == 0.0, 1.0, sgn)[..., None]
 
     # inside the sampled sub-rectangle, in front of the receiver, and on
     # the lit face of the light
-    s1 = jnp.einsum("pfk,k->pf", y - lv0[None, None], e1) / (l1 * l1)
-    s3 = jnp.einsum("pfk,k->pf", y - lv0[None, None], e3) / (l3 * l3)
+    s1 = _einsum("pfk,k->pf", y - lv0[None, None], e1) / (l1 * l1)
+    s3 = _einsum("pfk,k->pf", y - lv0[None, None], e3) / (l3 * l3)
     inside = ((s1 > 0.1) & (s1 < 0.9) & (s3 > 0.1) & (s3 < 0.9)
               & (tt > 0.0) & valid[:, None])
 
@@ -163,10 +168,10 @@ def quad_shadow_boundary_gradient(
     dirl = dirl / jnp.sqrt(jnp.maximum(d2, 1e-18))[..., None]
     r2 = area_full
     cos_a_max = jnp.sqrt(jnp.maximum(1.0 - jnp.clip(r2 / jnp.maximum(d2, 1e-20), 0.0, 1.0), 0.0))
-    dot_nl = jnp.maximum(0.0, jnp.einsum("pfk,pk->pf", dirl, nl))
+    dot_nl = jnp.maximum(0.0, _einsum("pfk,pk->pf", dirl, nl))
     w_quad = jnp.clip(
         2.0 * (1.0 - cos_a_max)
-        * jnp.maximum(0.0, -jnp.einsum("pfk,k->pf", dirl, ln)) * dot_nl,
+        * jnp.maximum(0.0, -_einsum("pfk,k->pf", dirl, ln)) * dot_nl,
         0.0, 1.0,
     )
     g = rho[:, None] * w_quad[..., None] * e_light[None, None]  # (P,F,3)
@@ -188,13 +193,13 @@ def quad_shadow_boundary_gradient(
     # velocity follows from the implicit function theorem on
     # s_edge(phi, theta) = const using the already-computed theta- and
     # phi-derivatives.
-    ds1_dth = jnp.einsum("pfk,k->pf", vy, e1) / (l1 * l1)
-    ds3_dth = jnp.einsum("pfk,k->pf", vy, e3) / (l3 * l3)
-    ds1_dph = jnp.einsum("pfk,k->pf", dy, e1) / (l1 * l1)
-    ds3_dph = jnp.einsum("pfk,k->pf", dy, e3) / (l3 * l3)
+    ds1_dth = _einsum("pfk,k->pf", vy, e1) / (l1 * l1)
+    ds3_dth = _einsum("pfk,k->pf", vy, e3) / (l3 * l3)
+    ds1_dph = _einsum("pfk,k->pf", dy, e1) / (l1 * l1)
+    ds3_dph = _einsum("pfk,k->pf", dy, e3) / (l3 * l3)
     # blocked-region center in (s1, s3) coordinates (for orientation)
-    sc1 = jnp.einsum("pk,k->p", y_c - lv0[None], e1) / (l1 * l1)
-    sc3 = jnp.einsum("pk,k->p", y_c - lv0[None], e3) / (l3 * l3)
+    sc1 = _einsum("pk,k->p", y_c - lv0[None], e1) / (l1 * l1)
+    sc3 = _einsum("pk,k->p", y_c - lv0[None], e3) / (l3 * l3)
 
     def edge_term(s_e, s_o, ds_e_dth, ds_o_dth, ds_e_dph, ds_o_dph,
                   lvl, sc_o, scale_o):

@@ -27,10 +27,12 @@ through film points offset ±ε pixels along n̂, with COMMON RANDOM NUMBERS
 per edge sample so the in/out difference is low-variance.
 
 No reference analog (the reference does not differentiate at all); this is
-the capability the TPU build exists for.
+the capability this build exists for.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -42,14 +44,17 @@ from bpt_tpu.integrator.config import IntegratorConfig
 from bpt_tpu.integrator.radiance import calculate_radiance
 from bpt_tpu.scenes.types import Scene
 
+# float32 contractions at full precision: on a GPU the default may be TF32
+_einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
+
 
 def _project(camera: Camera, p, width: int, height: int):
     """World point -> continuous pixel coordinates (gl_FragCoord space)."""
     ulen, vlen = film_extents(camera, width, height)
     rel = p - camera.position
-    z = jnp.einsum("...k,k->...", rel, camera.forward)
-    x = jnp.einsum("...k,k->...", rel, camera.right) / (ulen * z)
-    y = jnp.einsum("...k,k->...", rel, camera.up) / (vlen * z)
+    z = _einsum("...k,k->...", rel, camera.forward)
+    x = _einsum("...k,k->...", rel, camera.right) / (ulen * z)
+    y = _einsum("...k,k->...", rel, camera.up) / (vlen * z)
     # ndc -> pixel center coords
     return jnp.stack([(x + 1.0) * 0.5 * width, (y + 1.0) * 0.5 * height], -1)
 

@@ -3,8 +3,8 @@
 The reference's per-pixel SIMT megakernel becomes a fully vectorized,
 masked-lane wavefront over the whole pixel array: every bounce intersects all
 live rays, evaluates all material branches branchlessly and selects by
-material id.  The same code runs as the CPU jnp reference, jitted on one TPU
-chip, inside `shard_map` tiles, and (per-piece) inside Pallas kernels.
+material id.  The same code runs as the CPU jnp reference, jitted on one GPU,
+and inside `shard_map` tiles.
 """
 
 from bpt_tpu.integrator.config import IntegratorConfig

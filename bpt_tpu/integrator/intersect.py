@@ -58,7 +58,8 @@ def _merge(best: Hit, t, normal, color, mat_type, object_id, uv=None) -> Hit:
 def _intersect_unit_spheres(spheres, ro, rd, best: Hit, id_base: int) -> Hit:
     """Matrix-instanced unit spheres (BabylonPathTracing_FragmentShader.js:61-92).
 
-    The object-space transform is a batched (rays x 4x4) matmul — MXU-friendly.
+    The object-space transform is elementwise products and sums over the
+    (rays x 4x4) batch (float32 throughout — no reduced-precision matmul).
     """
     n_spheres = spheres.inv_matrix.shape[0]
     for i in range(n_spheres):  # static, tiny (2 in all demos)

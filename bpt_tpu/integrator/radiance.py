@@ -6,7 +6,7 @@ PhysicalSkyModel_FragmentShader.js:117-374,
 GLTFModelPathTracing_FragmentShader.js:351-609,
 HDRIEnvironmentPathTracing_FragmentShader.js:371-663,
 TransformedQuadricGeometry_FragmentShader.js:322-542) whose per-pixel bounce
-loop takes data-dependent branches.  On TPU that becomes a *wavefront*: the
+loop takes data-dependent branches.  Under XLA that becomes a *wavefront*: the
 bounce loop is unrolled (static trip count), every material branch is
 evaluated branchlessly across the whole pixel array, and per-lane alive /
 branch masks select the surviving update.  The static

@@ -1,6 +1,8 @@
-"""Pallas TPU megakernels (the compiled-fragment-shader tier).
+"""The fused Pallas megakernel (the compiled-fragment-shader tier).
 
-Filled in after the jnp reference path is validated: fused ray-tile bounce
-megakernel, denoise stencil kernel.  See bpt_tpu.integrator for the
-semantics they must reproduce draw-for-draw.
+`megakernel.trace_image_pallas` traces ray-gen → N bounces → first-hit
+records in one Triton-route kernel per pixel block, with a path-replay
+custom VJP; `integration.attach_pallas_path` wires it into the progressive
+renderer.  See bpt_tpu.integrator for the semantics it reproduces
+draw-for-draw.
 """

@@ -17,24 +17,13 @@ from bpt_tpu.kernels.megakernel import trace_image_pallas
 from bpt_tpu.renderer import ProgressiveRenderer, RenderState
 
 
-def attach_pallas_path(renderer: ProgressiveRenderer, tile_rows: int = 32, tile_cols: int = 256, reorder: bool = False) -> None:
+def attach_pallas_path(renderer: ProgressiveRenderer, interpret: bool = False) -> None:
     """Swap the renderer's step for the fused Pallas kernel.
 
-    ``reorder=True`` additionally routes the BATCHED sample loop
-    (ProgressiveRenderer.render's fused scan) through the staged
-    sorted-wavefront multi-frame path: each batch of K progressive frames
-    traces as ONE K*H*W lane pool (ray reordering + dead-lane compaction
-    between bounces — the fast path for divergent mesh scenes), then the
-    accumulation protocol replays the K per-frame results in order, so the
-    render is identical to K single steps."""
-    # a previous attach with reorder=True installed an instance-level
-    # _get_scan override; clear it so a re-attach with reorder=False does
-    # not keep serving the stale staged scan (advisor r4 finding)
-    renderer.__dict__.pop("_get_scan", None)
+    The kernel compiles for the GPU, or runs in the Pallas interpreter when
+    ``interpret=True`` (passed through to ``megakernel.trace_image_pallas``)."""
     cfg = renderer.cfg
     height, width = renderer.height, renderer.width
-    tile_rows = min(tile_rows, height)
-    tile_cols = min(tile_cols, width)
     # static scene facts must be decided here, while the scene is concrete —
     # inside the jitted step the quad vertices are tracers and the
     # parallelogram fast path would silently stay off
@@ -70,9 +59,7 @@ def attach_pallas_path(renderer: ProgressiveRenderer, tile_rows: int = 32, tile_
         sample_counter = jnp.where(moving, 1.0, state.sample_counter + 1.0)
         result = trace_image_pallas(
             scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
-            tile_rows=tile_rows, tile_cols=tile_cols,
-            interpret=jax.default_backend() != "tpu",
-            fast_quads=fast_quads,
+            interpret=interpret, fast_quads=fast_quads,
         )
         accum = finish_frame(result, state.accum, frame_counter, moving)
         return RenderState(accum=accum, sample_counter=sample_counter, frame_counter=frame_counter)
@@ -81,28 +68,3 @@ def attach_pallas_path(renderer: ProgressiveRenderer, tile_rows: int = 32, tile_
     renderer._scan_cache = None  # rebuild the fused-sample scan on demand
     renderer._scene_guard = _scene_guard
     renderer._step = jax.jit(step_state_pallas, static_argnums=(2,))
-
-    if reorder:
-        from bpt_tpu.kernels.megakernel import trace_frames_pallas
-
-        def multi_frame_scan(scene, camera, _cfg, state, rvs, bn):
-            k = rvs.shape[0]
-            fcs = state.frame_counter + 1.0 + jnp.arange(float(k))
-            res = trace_frames_pallas(
-                scene, camera, cfg, width, height, fcs, rvs, bn,
-                tile_rows=tile_rows, tile_cols=tile_cols,
-                interpret=jax.default_backend() != "tpu",
-                fast_quads=fast_quads,
-            )
-            accum = state.accum
-            fc = state.frame_counter
-            for i in range(k):
-                r_i = jax.tree.map(lambda x: x[i], res)
-                fc = fc + 1.0
-                accum = finish_frame(r_i, accum, fc, False)
-            return RenderState(accum=accum,
-                               sample_counter=state.sample_counter + k,
-                               frame_counter=fc)
-
-        jitted_scan = jax.jit(multi_frame_scan, static_argnums=(2,))
-        renderer._get_scan = lambda: jitted_scan

@@ -1,19 +1,23 @@
-"""Fused Pallas ray-tile megakernel for the Cornell-, quadric- and
-physical-sky-family scenes (quads + matrix-instanced unit spheres + the 12
-transformed quadrics; quad-light NEE with env "none", or sun-lobe NEE with
-the Preetham env "sky").
+"""Fused Pallas ray-block megakernel for the Cornell-, quadric-, sky-,
+glTF- and HDRI-family scenes (quads + matrix-instanced unit spheres + the 12
+transformed quadrics + one BVH triangle mesh; quad-light NEE with env
+"none", sun-lobe NEE with the Preetham env "sky", sun or env-CDF NEE with
+env "hdri").
 
-This is the TPU-native analog of the reference's compiled fragment shader
-(BabylonPathTracing_FragmentShader.js + pathtracing_default_main): one
-kernel program per row-tile computes ray-gen → N-bounce radiance → first-hit
-records, holding ALL per-path state (ray, mask, accumulated color, flags) in
-VMEM/registers for the whole bounce loop — no HBM round-trips between
-bounces, which is what the unfused XLA graph pays for.
+This is the reference's own GPU design (BabylonPathTracing_FragmentShader.js
++ pathtracing_default_main) compiled through Pallas' Triton route: one lane
+per path, ray-gen → N-bounce radiance → first-hit records in one program,
+with ALL per-path state (ray, mask, accumulated color, flags) in registers
+for the whole bounce loop — no device-memory round trips between bounces,
+which is what the unfused XLA wavefront pays for.  A program owns a small
+power-of-two block of pixels; its loops (the torus march, the BVH walk)
+stop when the slowest lane OF THE BLOCK finishes, not the slowest lane of
+the image.
 
-Layout: everything is component-form SoA — a 3-vector is three (TILE_ROWS, W)
-planes — so the lane dimension is the image width (multiple of 128) and the
-VPU sees full tiles.  Small scene constants (quad vertices, sphere inverse
-matrices, camera) live in SMEM and are read as scalars.
+Layout: everything is component-form SoA — a 3-vector is three
+(block_rows, block_cols) planes.  Small scene tables (quad vertices, sphere
+inverse matrices, camera, the mesh BVH) stay in global memory and are read
+by scalar loads.
 
 RNG parity: the kernel consumes exactly the same fixed draw schedule as
 bpt_tpu.integrator.radiance (4 ray-gen draws, then per bounce: blue-noise
@@ -39,12 +43,11 @@ fall back to the jnp integrator's AD (same draws ⇒ same program).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from bpt_tpu.integrator.config import IntegratorConfig
 from bpt_tpu.scenes.types import (
@@ -58,10 +61,6 @@ from bpt_tpu.scenes.types import (
 
 INFINITY = 1.0e6
 TWO_PI = 6.28318530717958648
-# Woop leaf-row formulation switch (see _mesh_walk.woop_rows): the
-# row-winner variant keeps fewer live planes and halves the improve-path
-# ops; flip for A/B on real silicon (results are identical up to FP ties).
-WOOP_ROW_WINNER = False
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +73,19 @@ def _dot(ax, ay, az, bx, by, bz):
 
 def _cross(ax, ay, az, bx, by, bz):
     return ay * bz - az * by, az * bx - ax * bz, ax * by - ay * bx
+
+
+def _select(mask, a, b):
+    """where(mask, a, b) for two constants, as planes: the Triton route
+    mistypes a select between two broadcast scalar literals."""
+    shape = mask.shape
+    return jnp.where(mask, jnp.full(shape, a, jnp.float32), jnp.full(shape, b, jnp.float32))
+
+
+def _any(mask):
+    """Block-wide any() as a max-reduction (the Triton route lowers float
+    reductions; it has no boolean reduce)."""
+    return jnp.max(_select(mask, 1.0, 0.0)) > 0.0
 
 
 def _rsqrt_safe(x):
@@ -111,7 +123,7 @@ def _rng_next(sx, sy):
     qy = ((sy >> 1) ^ sx) * 1103515245
     n = (qx ^ (qy >> 3)) * 1103515245
     bits = (n >> 9) | 0x3F800000
-    return pltpu.bitcast(bits, jnp.float32) - 1.0, sx, sy
+    return jax.lax.bitcast_convert_type(bits, jnp.float32) - 1.0, sx, sy
 
 
 def _tent(x):
@@ -328,12 +340,12 @@ def _q_box(ro, rd, k):
     def enter_n(i):
         a, b = (i + 1) % 3, (i + 2) % 3
         ge = (tmin[i] >= tmin[a]) & (tmin[i] >= tmin[b])
-        return -jnp.sign(rd[i]) * jnp.where(ge, 1.0, 0.0)
+        return -jnp.sign(rd[i]) * _select(ge, 1.0, 0.0)
 
     def exit_n(i):
         a, b = (i + 1) % 3, (i + 2) % 3
         le = (tmax[i] <= tmax[a]) & (tmax[i] <= tmax[b])
-        return -jnp.sign(rd[i]) * jnp.where(le, 1.0, 0.0)
+        return -jnp.sign(rd[i]) * _select(le, 1.0, 0.0)
 
     ok = t0 < t1
     ok0 = ok & (t0 > 0.0)
@@ -441,7 +453,7 @@ def _q_torus(ro, rd, k, max_steps=500):
         # most tiles finish in tens of steps, not the 500-step worst case
         step, t, d = carry
         live = (jnp.abs(d) >= 0.01) & (t - t_m0 <= 8.0)
-        return (step < max_steps) & jnp.any(live)
+        return (step < max_steps) & _any(live)
 
     def body(carry):
         step, t, d = carry
@@ -480,14 +492,14 @@ def _safe_inv_slab(x):
     return jnp.where(jnp.abs(x) < 1e-20, 1e20, 1.0 / jnp.where(x == 0.0, 1.0, x))
 
 
-def _mesh_walk(ro_o, rd_o, cull, nodes_f_ref, tris_ref, n_nodes_p, t_init, active=None, textured=False, stream=None, base=None, woop_ref=None):
-    """Escape-linked packet walk of the dense clustered BVH for ONE
-    sub-packet of rays — the fused-kernel analog of the reference's 28-deep
-    per-pixel stack traversal (GLTFModelPathTracing_FragmentShader.js:206-298)
-    recast for the VPU: the whole sub-packet shares a single scalar node
-    cursor, every slab test / Möller-Trumbore burst is a full-width vector
-    op, and subtrees no lane enters are skipped through the escape link
-    (see bpt_tpu.accel.cluster).
+def _mesh_walk(ro_o, rd_o, cull, nodes_ref, tris_ref, n_nodes, t_init, active=None, textured=False):
+    """Escape-linked BVH4 walk of ONE block of rays — the fused-kernel analog
+    of the reference's 28-deep per-pixel stack traversal
+    (GLTFModelPathTracing_FragmentShader.js:206-298).  The block shares one
+    scalar node cursor: every slab test / triangle test is a block-wide
+    vector op on node and leaf values read by scalar loads from global
+    memory, and subtrees no lane enters are skipped through the escape link
+    (see bpt_tpu.accel.cluster.Bvh4BVH).
 
     ro_o/rd_o: component tuples of (rows, cols) object-space planes (rd
     unnormalized so t is world-commensurate).  cull: traced bool scalar.
@@ -502,40 +514,51 @@ def _mesh_walk(ro_o, rd_o, cull, nodes_f_ref, tris_ref, n_nodes_p, t_init, activ
     follow hit: the winning triangle's baked PBR decision attributes
     (mat_class, roughness, emissive_flag — record floats 24..26, see
     scenes.gltf_scene.bake_triangle_attrs).
-
-    ``stream``: None keeps the whole triangle table VMEM-resident; a
-    ``(scratch_ref (2, 16, 128), dma_sem (2,))`` pair instead treats
-    ``tris_ref`` as HBM-resident and double-buffers a fixed 16-row window
-    per leaf — discovering a leaf STARTS its copy and processes the
-    PREVIOUS pending leaf, hiding the HBM round trip behind node stepping
-    (same pipeline as kernels.traverse._make_hbm_kernel; requires the
-    dense pack's 16-row over-padding and leaf_size <= 64).
     """
     rox, roy, roz = ro_o
     rdx, rdy, rdz = rd_o
     invx = _safe_inv_slab(rdx)
     invy = _safe_inv_slab(rdy)
     invz = _safe_inv_slab(rdz)
-    shape = rox.shape
-    zeros = jnp.zeros(shape, jnp.float32)
+    zeros = jnp.zeros(rox.shape, jnp.float32)
     n_extra = 3 if textured else 0
 
-    def tri_rows(row_get, nrows, c3):
-        """MT-test `nrows` packed rows (4 records each) against the packet."""
+    def interp(c5, closer, u, v, rec):
+        """Merge one triangle's interpolated normal/UV (+ baked attrs) into
+        the lanes where it is the new closest hit; rec(c) reads its record."""
+        nx, ny, nz, us, vs, *attrs = c5
+        w = 1.0 - u - v
+        inx = w * rec(9) + u * rec(12) + v * rec(15)
+        iny = w * rec(10) + u * rec(13) + v * rec(16)
+        inz = w * rec(11) + u * rec(14) + v * rec(17)
+        iu = w * rec(18) + u * rec(20) + v * rec(22)
+        iv = w * rec(19) + u * rec(21) + v * rec(23)
+        nx = jnp.where(closer, inx, nx)
+        ny = jnp.where(closer, iny, ny)
+        nz = jnp.where(closer, inz, nz)
+        us = jnp.where(closer, iu, us)
+        vs = jnp.where(closer, iv, vs)
+        if textured:
+            # baked PBR decision attrs (class, rough, emissive)
+            attrs = [jnp.where(closer, rec(24 + a), attrs[a]) for a in range(3)]
+        return (nx, ny, nz, us, vs, *attrs)
 
-        def row_body(k, c4):
-            t_best, nx, ny, nz, us, vs, *attrs = c4
-            attrs = list(attrs)
-            row = row_get(k)  # (1, 128): 4 records
-            for j in range(4):
-                o = 32 * j
-                p0x, p0y, p0z = row[0, o + 0], row[0, o + 1], row[0, o + 2]
-                e1x = row[0, o + 3] - p0x
-                e1y = row[0, o + 4] - p0y
-                e1z = row[0, o + 5] - p0z
-                e2x = row[0, o + 6] - p0x
-                e2y = row[0, o + 7] - p0y
-                e2z = row[0, o + 8] - p0z
+    def mt_rows(row0, nrows, st):
+        """Möller-Trumbore over dense rows [row0, row0 + nrows), four
+        32-float triangle records per row."""
+
+        def row_body(k, st):
+            r = row0 + k
+
+            def record(j, st):
+                t_best, *rest = st
+
+                def rec(c):
+                    return tris_ref[r, 32 * j + c]
+
+                p0x, p0y, p0z = rec(0), rec(1), rec(2)
+                e1x, e1y, e1z = rec(3) - p0x, rec(4) - p0y, rec(5) - p0z
+                e2x, e2y, e2z = rec(6) - p0x, rec(7) - p0y, rec(8) - p0z
                 pvx = rdy * e2z - rdz * e2y
                 pvy = rdz * e2x - rdx * e2z
                 pvz = rdx * e2y - rdy * e2x
@@ -551,82 +574,28 @@ def _mesh_walk(ro_o, rd_o, cull, nodes_f_ref, tris_ref, n_nodes_p, t_init, activ
                 miss = (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0) | (t <= 0.0)
                 miss = miss | (cull & (det < 0.0))
                 closer = jnp.logical_not(miss) & (t < t_best)
-                w = 1.0 - u - v
-                inx = w * row[0, o + 9] + u * row[0, o + 12] + v * row[0, o + 15]
-                iny = w * row[0, o + 10] + u * row[0, o + 13] + v * row[0, o + 16]
-                inz = w * row[0, o + 11] + u * row[0, o + 14] + v * row[0, o + 17]
-                iu = w * row[0, o + 18] + u * row[0, o + 20] + v * row[0, o + 22]
-                iv = w * row[0, o + 19] + u * row[0, o + 21] + v * row[0, o + 23]
                 t_best = jnp.where(closer, t, t_best)
-                nx = jnp.where(closer, inx, nx)
-                ny = jnp.where(closer, iny, ny)
-                nz = jnp.where(closer, inz, nz)
-                us = jnp.where(closer, iu, us)
-                vs = jnp.where(closer, iv, vs)
-                if textured:
-                    # baked PBR decision attrs (class, rough, emissive)
-                    attrs = [
-                        jnp.where(closer, row[0, o + 24 + a], attrs[a])
-                        for a in range(3)
-                    ]
-            return (t_best, nx, ny, nz, us, vs, *attrs)
+                rest = interp(tuple(rest), closer, u, v, rec)
+                return (t_best, *rest)
 
-        return jax.lax.fori_loop(0, nrows, row_body, c3)
+            return jax.lax.fori_loop(0, 4, record, st)
 
-    def box_test(i, t_best):
-        # `base` offsets into the per-octant near-first layout block
-        # (accel.cluster.pack_clustered_dense_oct); links stay relative
-        nf = nodes_f_ref[pl.ds(i if base is None else base + i, 1), :]  # (1, 16): min max esc row0 nrows
-        tx0 = (nf[0, 0] - rox) * invx
-        tx1 = (nf[0, 3] - rox) * invx
-        ty0 = (nf[0, 1] - roy) * invy
-        ty1 = (nf[0, 4] - roy) * invy
-        tz0 = (nf[0, 2] - roz) * invz
-        tz1 = (nf[0, 5] - roz) * invz
-        tmin = jnp.maximum(
-            jnp.maximum(jnp.minimum(tx0, tx1), jnp.minimum(ty0, ty1)),
-            jnp.minimum(tz0, tz1),
-        )
-        tmax = jnp.minimum(
-            jnp.minimum(jnp.maximum(tx0, tx1), jnp.maximum(ty0, ty1)),
-            jnp.maximum(tz0, tz1),
-        )
-        box_hit = (jnp.maximum(tmin, 0.0) <= tmax) & (tmin < t_best)
-        if active is not None:
-            # dead lanes (terminated paths) must not drag the packet into
-            # subtrees: their stale rays still intersect boxes otherwise
-            box_hit = box_hit & active
-        # link fields ride the float row (SMEM is 128 B/scalar — a mesh-
-        # sized int side table would blow its 1 MB); exact for values < 2^24
-        esc = nf[0, 6].astype(jnp.int32)
-        row0 = nf[0, 7].astype(jnp.int32)
-        nrows = nf[0, 8].astype(jnp.int32)
-        return jnp.any(box_hit), esc, row0, nrows
+        return jax.lax.fori_loop(0, nrows, row_body, st)
 
-    def cond(c):
-        return c[0] < n_nodes_p
-
-    # BVH4 inlined-leaf layout (accel.cluster.Bvh4OctBVH): 32-float records
-    # with FOUR child AABBs — one row load + 4 slab tests make a 4-way
-    # step decision, and leaf children (meta < 0) are processed inline at
-    # the parent's step, so leaves cost no node visit.  Child masks use the
-    # step-entry t_best (a leaf child's hits don't re-prune its later
-    # siblings within the same step — weaker pruning only, never wrong).
-    bvh4 = nodes_f_ref.shape[-1] == 32
-
-    def bvh4_step(i, t_best):
-        """Load record i, slab-test the 4 child boxes -> (per-child any-hit
-        scalars, per-child meta floats, escape)."""
-        nf = nodes_f_ref[pl.ds(i if base is None else base + i, 1), :]
+    def step(i, t_best):
+        """Record i: slab-test the 4 child boxes -> (per-child any-hit
+        scalars, per-child meta scalars, escape)."""
         ms = []
         for k in range(4):
-            o = 6 * k
-            tx0 = (nf[0, o + 0] - rox) * invx
-            tx1 = (nf[0, o + 3] - rox) * invx
-            ty0 = (nf[0, o + 1] - roy) * invy
-            ty1 = (nf[0, o + 4] - roy) * invy
-            tz0 = (nf[0, o + 2] - roz) * invz
-            tz1 = (nf[0, o + 5] - roz) * invz
+            def N(c, o=6 * k):
+                return nodes_ref[i, o + c]
+
+            tx0 = (N(0) - rox) * invx
+            tx1 = (N(3) - rox) * invx
+            ty0 = (N(1) - roy) * invy
+            ty1 = (N(4) - roy) * invy
+            tz0 = (N(2) - roz) * invz
+            tz1 = (N(5) - roz) * invz
             tmin = jnp.maximum(
                 jnp.maximum(jnp.minimum(tx0, tx1), jnp.minimum(ty0, ty1)),
                 jnp.minimum(tz0, tz1),
@@ -637,414 +606,47 @@ def _mesh_walk(ro_o, rd_o, cull, nodes_f_ref, tris_ref, n_nodes_p, t_init, activ
             )
             hit = (jnp.maximum(tmin, 0.0) <= tmax) & (tmin < t_best)
             if active is not None:
+                # dead lanes (terminated paths) must not drag the block into
+                # subtrees: their stale rays still intersect boxes otherwise
                 hit = hit & active
-            ms.append(jnp.any(hit))
-        meta = [nf[0, 24 + k] for k in range(4)]
-        esc = nf[0, 28].astype(jnp.int32)
+            ms.append(_any(hit))
+        meta = [nodes_ref[i, 24 + k] for k in range(4)]
+        esc = nodes_ref[i, 28].astype(jnp.int32)
         return ms, meta, esc
 
-    def bvh4_next(ms, meta, esc):
-        # descend into the FIRST hit inner child (children are near-first
-        # ordered per octant layout); later hit inner children are reached
-        # through the sibling escape chain
+    def body(c):
+        i, *st = c
+        ms, meta, esc = step(i, st[0])
+        hits = [m.astype(jnp.int32) for m in ms]
+
+        def child(k, st):
+            # leaf children are processed in a loop (one copy of the leaf
+            # code): meta < 0 is an inlined leaf, -(row_start * 32 + rows)
+            hit = jnp.where(k == 0, hits[0], jnp.where(
+                k == 1, hits[1], jnp.where(k == 2, hits[2], hits[3]))) > 0
+            meta_k = nodes_ref[i, 24 + k]
+            enc = (-meta_k).astype(jnp.int32)
+            row0 = enc // 32
+            nrows = enc - row0 * 32
+            def leaf_fn(s):
+                return mt_rows(row0, nrows, s)
+
+            return jax.lax.cond(hit & (meta_k < 0.0), leaf_fn, lambda s: s, st)
+
+        st = jax.lax.fori_loop(0, 4, child, tuple(st))
+        # descend into the FIRST hit inner child; later hit inner children
+        # are reached through the sibling escape chain
         next_i = esc
         for k in (3, 2, 1, 0):
             next_i = jnp.where(ms[k] & (meta[k] > 0.0),
                                meta[k].astype(jnp.int32), next_i)
-        return next_i
+        return (next_i, *st)
 
-    def woop_rows(row_get_w, dense_get, nrows_w, c3):
-        """Woop leaf test, 'interp on improve': 8 affine unit-triangle
-        transforms per woop row (accel.cluster.Bvh4OctBVH.woop) give
-        (t, u, v, closer) in ~40 vector ops/tri — the REJECTION path — and
-        the dense interp rows (2w, 2w+1: normals/uvs/attrs) are fetched by
-        ``dense_get(k) -> (d0, d1)`` only when a row actually improves some
-        lane (measured ~10-20% of visited rows), keeping the per-row floor
-        at ~half of in-row MT."""
-
-        def row_body_winner(k, c4):
-            # ROW-WINNER formulation (gated by WOOP_ROW_WINNER): keep only
-            # (t, u, v, argmin-j) live across the 8 tests and select the
-            # winner's record scalars once in the improve path — fewer live
-            # planes and ~half the interp ops vs the per-tri merge below.
-            t_best = c4[0]
-            wrow = row_get_w(k)
-            t_row = jnp.full(shape, INFINITY, jnp.float32)
-            u_row = zeros
-            v_row = zeros
-            j_row = zeros
-            for j in range(8):
-                o = 16 * j
-                opx = wrow[0, o + 0] * rox + wrow[0, o + 1] * roy + wrow[0, o + 2] * roz + wrow[0, o + 9]
-                opy = wrow[0, o + 3] * rox + wrow[0, o + 4] * roy + wrow[0, o + 5] * roz + wrow[0, o + 10]
-                opz = wrow[0, o + 6] * rox + wrow[0, o + 7] * roy + wrow[0, o + 8] * roz + wrow[0, o + 11]
-                dpx = wrow[0, o + 0] * rdx + wrow[0, o + 1] * rdy + wrow[0, o + 2] * rdz
-                dpy = wrow[0, o + 3] * rdx + wrow[0, o + 4] * rdy + wrow[0, o + 5] * rdz
-                dpz = wrow[0, o + 6] * rdx + wrow[0, o + 7] * rdy + wrow[0, o + 8] * rdz
-                t = -opz * _safe_inv_slab(dpz)
-                u = opx + t * dpx
-                v = opy + t * dpy
-                miss = (u < 0.0) | (v < 0.0) | (u + v > 1.0) | (t <= 0.0)
-                miss = miss | (cull & (dpz > 0.0))
-                ok = jnp.logical_not(miss) & (t < t_row)
-                t_row = jnp.where(ok, t, t_row)
-                u_row = jnp.where(ok, u, u_row)
-                v_row = jnp.where(ok, v, v_row)
-                j_row = jnp.where(ok, jnp.float32(j), j_row)
-            closer = t_row < t_best
-            t_best = jnp.where(closer, t_row, t_best)
-
-            def interp_fn(c5, k=k, closer=closer, j_row=j_row,
-                          u_row=u_row, v_row=v_row):
-                nx, ny, nz, us, vs, *attrs = c5
-                attrs = list(attrs)
-                d0, d1 = dense_get(k)
-                # record floats 9..23: n0 n1 n2 (3 each), uv0 uv1 uv2 (2
-                # each); 24..26 baked PBR attrs
-                n_sel = 18 if textured else 15
-                sel = [zeros] * n_sel
-                for j in range(8):
-                    row = d0 if j < 4 else d1
-                    o2 = 32 * (j % 4)
-                    cl = closer & (j_row == jnp.float32(j))
-                    for idx in range(15):
-                        sel[idx] = jnp.where(cl, row[0, o2 + 9 + idx], sel[idx])
-                    if textured:
-                        for a in range(3):
-                            sel[15 + a] = jnp.where(cl, row[0, o2 + 24 + a],
-                                                    sel[15 + a])
-                w = 1.0 - u_row - v_row
-                inx = w * sel[0] + u_row * sel[3] + v_row * sel[6]
-                iny = w * sel[1] + u_row * sel[4] + v_row * sel[7]
-                inz = w * sel[2] + u_row * sel[5] + v_row * sel[8]
-                iu = w * sel[9] + u_row * sel[11] + v_row * sel[13]
-                iv = w * sel[10] + u_row * sel[12] + v_row * sel[14]
-                nx = jnp.where(closer, inx, nx)
-                ny = jnp.where(closer, iny, ny)
-                nz = jnp.where(closer, inz, nz)
-                us = jnp.where(closer, iu, us)
-                vs = jnp.where(closer, iv, vs)
-                if textured:
-                    attrs = [
-                        jnp.where(closer, sel[15 + a], attrs[a])
-                        for a in range(3)
-                    ]
-                return (nx, ny, nz, us, vs, *attrs)
-
-            rest = jax.lax.cond(jnp.any(closer), interp_fn,
-                                lambda c5: c5, tuple(c4[1:]))
-            return (t_best, *rest)
-
-        def row_body(k, c4):
-            t_best = c4[0]
-            wrow = row_get_w(k)  # (1, 128): 8 tris
-            closers, u_l, v_l = [], [], []
-            for j in range(8):
-                o = 16 * j
-                opx = wrow[0, o + 0] * rox + wrow[0, o + 1] * roy + wrow[0, o + 2] * roz + wrow[0, o + 9]
-                opy = wrow[0, o + 3] * rox + wrow[0, o + 4] * roy + wrow[0, o + 5] * roz + wrow[0, o + 10]
-                opz = wrow[0, o + 6] * rox + wrow[0, o + 7] * roy + wrow[0, o + 8] * roz + wrow[0, o + 11]
-                dpx = wrow[0, o + 0] * rdx + wrow[0, o + 1] * rdy + wrow[0, o + 2] * rdz
-                dpy = wrow[0, o + 3] * rdx + wrow[0, o + 4] * rdy + wrow[0, o + 5] * rdz
-                dpz = wrow[0, o + 6] * rdx + wrow[0, o + 7] * rdy + wrow[0, o + 8] * rdz
-                t = -opz * _safe_inv_slab(dpz)
-                u = opx + t * dpx
-                v = opy + t * dpy
-                # d'z = n.rd / |n|^2, so cull (det = -rd.n < 0) == d'z > 0
-                miss = (u < 0.0) | (v < 0.0) | (u + v > 1.0) | (t <= 0.0)
-                miss = miss | (cull & (dpz > 0.0))
-                closer = jnp.logical_not(miss) & (t < t_best)
-                t_best = jnp.where(closer, t, t_best)
-                closers.append(closer)
-                u_l.append(u)
-                v_l.append(v)
-            improved = closers[0]
-            for j in range(1, 8):
-                improved = improved | closers[j]
-
-            def interp_fn(c5, k=k, closers=closers, u_l=u_l, v_l=v_l):
-                nx, ny, nz, us, vs, *attrs = c5
-                attrs = list(attrs)
-                d0, d1 = dense_get(k)
-                for j in range(8):
-                    row = d0 if j < 4 else d1
-                    o2 = 32 * (j % 4)
-                    u, v, cl = u_l[j], v_l[j], closers[j]
-                    w = 1.0 - u - v
-                    inx = w * row[0, o2 + 9] + u * row[0, o2 + 12] + v * row[0, o2 + 15]
-                    iny = w * row[0, o2 + 10] + u * row[0, o2 + 13] + v * row[0, o2 + 16]
-                    inz = w * row[0, o2 + 11] + u * row[0, o2 + 14] + v * row[0, o2 + 17]
-                    iu = w * row[0, o2 + 18] + u * row[0, o2 + 20] + v * row[0, o2 + 22]
-                    iv = w * row[0, o2 + 19] + u * row[0, o2 + 21] + v * row[0, o2 + 23]
-                    nx = jnp.where(cl, inx, nx)
-                    ny = jnp.where(cl, iny, ny)
-                    nz = jnp.where(cl, inz, nz)
-                    us = jnp.where(cl, iu, us)
-                    vs = jnp.where(cl, iv, vs)
-                    if textured:
-                        attrs = [
-                            jnp.where(cl, row[0, o2 + 24 + a], attrs[a])
-                            for a in range(3)
-                        ]
-                return (nx, ny, nz, us, vs, *attrs)
-
-            rest = jax.lax.cond(jnp.any(improved), interp_fn,
-                                lambda c5: c5, tuple(c4[1:]))
-            return (t_best, *rest)
-
-        body = row_body_winner if WOOP_ROW_WINNER else row_body
-        return jax.lax.fori_loop(0, nrows_w, body, c3)
-
-    if bvh4 and stream is None:
-        use_woop = woop_ref is not None
-
-        def body(c):
-            i, t_best, nx, ny, nz, us, vs, *attrs = c
-            ms, meta, esc = bvh4_step(i, t_best)
-            st = (t_best, nx, ny, nz, us, vs, *attrs)
-            for k in range(4):
-                # meta < 0: inlined leaf, WOOP-row units (dense rows = 2x)
-                enc = (-meta[k]).astype(jnp.int32)
-                row0 = enc // 32
-                nrows = enc - row0 * 32
-
-                if use_woop:
-                    def leaf_fn(c2, row0=row0, nrows=nrows):
-                        return woop_rows(
-                            lambda kk, row0=row0: woop_ref[pl.ds(row0 + kk, 1), :],
-                            lambda kk, row0=row0: (
-                                tris_ref[pl.ds(2 * (row0 + kk), 1), :],
-                                tris_ref[pl.ds(2 * (row0 + kk) + 1, 1), :],
-                            ),
-                            nrows, c2)
-                else:
-                    def leaf_fn(c2, row0=row0, nrows=nrows):
-                        return tri_rows(
-                            lambda kk: tris_ref[pl.ds(2 * row0 + kk, 1), :],
-                            2 * nrows, c2
-                        )
-
-                st = jax.lax.cond(ms[k] & (meta[k] < 0.0), leaf_fn,
-                                  lambda c2: c2, st)
-            t_best, nx, ny, nz, us, vs, *attrs = st
-            return (bvh4_next(ms, meta, esc), t_best, nx, ny, nz, us, vs, *attrs)
-
-        carry = (jnp.int32(0), t_init, zeros, zeros, zeros, zeros, zeros)
-        carry = carry + (zeros,) * n_extra
-        _, t_best, nx, ny, nz, us, vs, *attrs = jax.lax.while_loop(cond, body, carry)
-        return (t_best, nx, ny, nz, us, vs, t_best < t_init, *attrs)
-
-    if bvh4 and woop_ref is not None:
-        # HBM-streaming Woop walk (reference-capacity meshes): leaves
-        # double-buffer 8-woop-row windows (half the bytes of the dense
-        # window), and the interp-on-improve dense rows (2w, 2w+1) are
-        # fetched by a short blocking DMA only when a row improves a lane.
-        wscr, wsem, iscr, isem = stream
-
-        def leaf_dma_w(row0w, slot):
-            return pltpu.make_async_copy(
-                woop_ref.at[pl.ds(row0w, 8), :], wscr.at[slot], wsem.at[slot]
-            )
-
-        def process_leaf_w(pr0w, pnrw, slot, st):
-            def dense_get(k):
-                cp = pltpu.make_async_copy(
-                    tris_ref.at[pl.ds(2 * (pr0w + k), 2), :], iscr, isem
-                )
-                cp.start()
-                cp.wait()
-                return iscr[pl.ds(0, 1), :], iscr[pl.ds(1, 1), :]
-
-            return woop_rows(
-                lambda kk: wscr[slot, pl.ds(kk, 1), :], dense_get, pnrw, st
-            )
-
-        def body(c):
-            i, pr0, pnr, slot, t_best, nx, ny, nz, us, vs, *attrs = c
-            ms, meta, esc = bvh4_step(i, t_best)
-            st = (t_best, nx, ny, nz, us, vs, *attrs)
-            c2 = (pr0, pnr, slot, st)
-            for k in range(4):
-                enc = (-meta[k]).astype(jnp.int32)
-                row0 = enc // 32
-                nrows = enc - row0 * 32
-
-                def leaf_fn(c3, row0=row0, nrows=nrows):
-                    pr0, pnr, slot, st = c3
-                    leaf_dma_w(row0, 1 - slot).start()
-
-                    def drain(st):
-                        leaf_dma_w(pr0, slot).wait()
-                        return process_leaf_w(pr0, pnr, slot, st)
-
-                    st = jax.lax.cond(pnr > 0, drain, lambda s: s, st)
-                    return (row0, nrows, 1 - slot, st)
-
-                c2 = jax.lax.cond(ms[k] & (meta[k] < 0.0), leaf_fn,
-                                  lambda c3: c3, c2)
-            pr0, pnr, slot, st = c2
-            t_best, nx, ny, nz, us, vs, *attrs = st
-            return (bvh4_next(ms, meta, esc), pr0, pnr, slot,
-                    t_best, nx, ny, nz, us, vs, *attrs)
-
-        carry = (jnp.int32(0), jnp.int32(0), jnp.int32(0), jnp.int32(1),
-                 t_init, zeros, zeros, zeros, zeros, zeros)
-        carry = carry + (zeros,) * n_extra
-        _, pr0, pnr, slot, t_best, nx, ny, nz, us, vs, *attrs = (
-            jax.lax.while_loop(cond, body, carry)
-        )
-
-        def final_drain_w(c3):
-            leaf_dma_w(pr0, slot).wait()
-            return process_leaf_w(pr0, pnr, slot, c3)
-
-        t_best, nx, ny, nz, us, vs, *attrs = jax.lax.cond(
-            pnr > 0, final_drain_w, lambda c3: c3,
-            (t_best, nx, ny, nz, us, vs, *attrs),
-        )
-        return (t_best, nx, ny, nz, us, vs, t_best < t_init, *attrs)
-
-    if bvh4:
-        scratch, sem = stream
-
-        def leaf_dma4(row0, slot):
-            return pltpu.make_async_copy(
-                tris_ref.at[pl.ds(row0, 16), :], scratch.at[slot], sem.at[slot]
-            )
-
-        def body(c):
-            i, pr0, pnr, slot, t_best, nx, ny, nz, us, vs, *attrs = c
-            ms, meta, esc = bvh4_step(i, t_best)
-            st = (t_best, nx, ny, nz, us, vs, *attrs)
-            c2 = (pr0, pnr, slot, st)
-            for k in range(4):
-                # meta is WOOP-row units; the stream path walks the dense
-                # Moller-Trumbore rows (2 per woop row)
-                enc = (-meta[k]).astype(jnp.int32)
-                row0 = 2 * (enc // 32)
-                nrows = 2 * (enc - (enc // 32) * 32)
-
-                def leaf_fn(c3, row0=row0, nrows=nrows):
-                    pr0, pnr, slot, st = c3
-                    # start this leaf's copy, drain the pending one (same
-                    # double-buffer pipeline as the binary walk)
-                    leaf_dma4(row0, 1 - slot).start()
-
-                    def drain(st):
-                        leaf_dma4(pr0, slot).wait()
-                        return tri_rows(
-                            lambda kk: scratch[slot, pl.ds(kk, 1), :], pnr, st
-                        )
-
-                    st = jax.lax.cond(pnr > 0, drain, lambda s: s, st)
-                    return (row0, nrows, 1 - slot, st)
-
-                c2 = jax.lax.cond(ms[k] & (meta[k] < 0.0), leaf_fn,
-                                  lambda c3: c3, c2)
-            pr0, pnr, slot, st = c2
-            t_best, nx, ny, nz, us, vs, *attrs = st
-            return (bvh4_next(ms, meta, esc), pr0, pnr, slot,
-                    t_best, nx, ny, nz, us, vs, *attrs)
-
-        carry = (jnp.int32(0), jnp.int32(0), jnp.int32(0), jnp.int32(1),
-                 t_init, zeros, zeros, zeros, zeros, zeros)
-        carry = carry + (zeros,) * n_extra
-        _, pr0, pnr, slot, t_best, nx, ny, nz, us, vs, *attrs = (
-            jax.lax.while_loop(cond, body, carry)
-        )
-
-        def final_drain4(c3):
-            leaf_dma4(pr0, slot).wait()
-            return tri_rows(lambda kk: scratch[slot, pl.ds(kk, 1), :], pnr, c3)
-
-        t_best, nx, ny, nz, us, vs, *attrs = jax.lax.cond(
-            pnr > 0, final_drain4, lambda c3: c3,
-            (t_best, nx, ny, nz, us, vs, *attrs),
-        )
-        return (t_best, nx, ny, nz, us, vs, t_best < t_init, *attrs)
-
-    if stream is None:
-        def body(c):
-            i, t_best, nx, ny, nz, us, vs, *attrs = c
-            any_hit, esc, row0, nrows = box_test(i, t_best)
-            is_leaf = nrows > 0
-
-            def leaf_fn(c2):
-                return tri_rows(
-                    lambda k: tris_ref[pl.ds(row0 + k, 1), :], nrows, c2
-                )
-
-            leaf_state = (t_best, nx, ny, nz, us, vs, *attrs)
-            t_best, nx, ny, nz, us, vs, *attrs = jax.lax.cond(
-                any_hit & is_leaf, leaf_fn, lambda c2: c2, leaf_state
-            )
-            next_i = jnp.where(any_hit & jnp.logical_not(is_leaf), i + 1, esc)
-            return (next_i, t_best, nx, ny, nz, us, vs, *attrs)
-
-        # NB: no boolean plane rides the carry (Mosaic cannot yield
-        # vector<i1>); "found a hit" is recovered as t_best < t_init
-        # afterwards — exact, since any accepted triangle strictly lowered
-        # t from its t_init start.
-        carry = (jnp.int32(0), t_init, zeros, zeros, zeros, zeros, zeros)
-        carry = carry + (zeros,) * n_extra
-        _, t_best, nx, ny, nz, us, vs, *attrs = jax.lax.while_loop(cond, body, carry)
-        return (t_best, nx, ny, nz, us, vs, t_best < t_init, *attrs)
-
-    scratch, sem = stream
-
-    def leaf_dma(row0, slot):
-        return pltpu.make_async_copy(
-            tris_ref.at[pl.ds(row0, 16), :], scratch.at[slot], sem.at[slot]
-        )
-
-    def body(c):
-        i, pr0, pnr, slot, t_best, nx, ny, nz, us, vs, *attrs = c
-        any_hit, esc, row0, nrows = box_test(i, t_best)
-        is_leaf = nrows > 0
-        take_leaf = any_hit & is_leaf
-
-        def leaf_fn(c2):
-            # start THIS leaf's copy, then drain the pending leaf whose DMA
-            # has been in flight since its discovery (t_best is a pure min-
-            # reduction, so deferred processing changes nothing but pruning
-            # strength; leaves still process in discovery order)
-            leaf_dma(row0, 1 - slot).start()
-
-            def drain(c3):
-                leaf_dma(pr0, slot).wait()
-                return tri_rows(
-                    lambda k: scratch[slot, pl.ds(k, 1), :], pnr, c3
-                )
-
-            return jax.lax.cond(pnr > 0, drain, lambda c3: c3, c2)
-
-        leaf_state = (t_best, nx, ny, nz, us, vs, *attrs)
-        t_best, nx, ny, nz, us, vs, *attrs = jax.lax.cond(
-            take_leaf, leaf_fn, lambda c2: c2, leaf_state
-        )
-        pr0 = jnp.where(take_leaf, row0, pr0)
-        pnr = jnp.where(take_leaf, nrows, pnr)
-        slot = jnp.where(take_leaf, 1 - slot, slot)
-        next_i = jnp.where(any_hit & jnp.logical_not(is_leaf), i + 1, esc)
-        return (next_i, pr0, pnr, slot, t_best, nx, ny, nz, us, vs, *attrs)
-
-    carry = (jnp.int32(0), jnp.int32(0), jnp.int32(0), jnp.int32(1),
-             t_init, zeros, zeros, zeros, zeros, zeros)
+    carry = (jnp.int32(0), t_init, zeros, zeros, zeros, zeros, zeros)
     carry = carry + (zeros,) * n_extra
-    _, pr0, pnr, slot, t_best, nx, ny, nz, us, vs, *attrs = (
-        jax.lax.while_loop(cond, body, carry)
-    )
-
-    def final_drain(c3):
-        leaf_dma(pr0, slot).wait()
-        return tri_rows(lambda k: scratch[slot, pl.ds(k, 1), :], pnr, c3)
-
-    t_best, nx, ny, nz, us, vs, *attrs = jax.lax.cond(
-        pnr > 0, final_drain, lambda c3: c3,
-        (t_best, nx, ny, nz, us, vs, *attrs),
-    )
+    _, t_best, nx, ny, nz, us, vs, *attrs = jax.lax.while_loop(
+        lambda c: c[0] < n_nodes, body, carry)
     return (t_best, nx, ny, nz, us, vs, t_best < t_init, *attrs)
-
 
 def _smoothstep(e0, e1, x):
     t = jnp.clip((x - e0) / (e1 - e0), 0.0, 1.0)
@@ -1053,14 +655,15 @@ def _smoothstep(e0, e1, x):
 
 def _acos01(x):
     """acos for x in [0, 1]: Abramowitz & Stegun 4.4.45 (|err| < 6.8e-5 rad).
-    Mosaic has no acos lowering; the error is far inside the sky's tolerance."""
+    One polynomial for every backend; the error is far inside the sky's
+    tolerance."""
     return _safe_sqrt(1.0 - x) * (
         1.5707288 + x * (-0.2121144 + x * (0.0742610 - 0.0187293 * x))
     )
 
 
 def _pow_c(x, p):
-    """x**p for x >= 0 via exp/log (Mosaic has no general pow lowering)."""
+    """x**p for x >= 0 via exp/log."""
     return jnp.exp(p * jnp.log(jnp.maximum(x, 1e-20)))
 
 
@@ -1068,7 +671,7 @@ def _sky_color_c(rdx, rdy, rdz, sunx, suny, sunz, sun_e, gamma, blend):
     """Preetham sky in component form — Get_Sky_Color
     (PathTracingCommon.js:430-475), same math as bpt_tpu.sky.get_sky_color.
 
-    rd* are unit-direction planes; sun* are SMEM scalars; sun_e (sun
+    rd* are unit-direction planes; sun* are scalars; sun_e (sun
     intensity), gamma (sunfade exponent) and blend (horizon mix weight) are
     precomputed host-side scalars (pure functions of the sun direction).
     Returns (r, g, b) radiance planes.
@@ -1146,44 +749,11 @@ _QUADRIC_INTERSECTORS = (
 # the kernel
 # ---------------------------------------------------------------------------
 
-def _state_layout(cfg: IntegratorConfig, mesh_textured: bool, n_sg: int = 0) -> list:
-    """Per-lane state plane order at staged-phase boundaries.
-
-    The staged (sorted-wavefront) mode splits the bounce loop into phases
-    so the driver can REORDER rays between bounces (direction-octant +
-    hit-position sort — the round-3 'ray reordering' lever); everything a
-    path carries across a phase boundary is one f32 plane per key here.
-    Booleans ride as 0/1 floats, d_cnt as a float int, px/py as exact
-    (< 2^24) float pixel coordinates (the RNG re-seed needs them after
-    permutation)."""
-    keys = [
-        "rox", "roy", "roz", "rdx", "rdy", "rdz",
-        "m_r", "m_g", "m_b", "acc_r", "acc_g", "acc_b",
-        "alive", "spec", "samp_l", "coat", "d_cnt", "sharp",
-        "prev_metal", "px", "py", "fr", "fslot",
-        "obj_nx", "obj_ny", "obj_nz", "obj_cr", "obj_cg", "obj_cb", "obj_id",
-    ]
-    if cfg.env in ("sky", "hdri"):
-        keys.append("prev_trans")
-    if cfg.env == "hdri":
-        keys += ["mw_r", "mw_g", "mw_b", "md_x", "md_y", "md_z"]
-    if mesh_textured:
-        keys += ["em_r", "em_g", "em_b", "em_u", "em_v"]
-        for b in range(cfg.bounces):
-            keys += [f"alb_u{b}", f"alb_v{b}"]
-    # staged path-replay VJP: the per-object ∂log-throughput accumulators
-    # (hit counts + Beer sums — see the `sg`/`sgb` comment in _make_kernel)
-    # are per-lane state like everything else; they ride the group-8
-    # permutations and scatter home with the lane identity.
-    for j in range(n_sg):
-        keys.append(f"sg{j}")
-    return keys
-
-
-def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics: int, tile_rows: int, tile_cols: int, width: int, height: int, param_grads: bool = False, has_mesh: bool = False, n_nodes_p: int = 0, fast_quads: bool = False, mesh_textured: bool = False, sub_rows: int = 0, bounce_lo: int = 0, bounce_hi: int | None = None, staged: bool = False, mesh_stream: bool = False, mesh_oct: bool = False, mesh_woop: bool = False):
+def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics: int, block_rows: int, block_cols: int, width: int, height: int, param_grads: bool = False, has_mesh: bool = False, n_nodes: int = 0, fast_quads: bool = False, mesh_textured: bool = False):
+    """Kernel body for one (block_rows, block_cols) pixel block.  ``width``
+    and ``height`` are the FULL image's (NDC); a row-sharded call adds its
+    first absolute row from scalars[10]."""
     eps = cfg.eps_intersect
-    if sub_rows <= 0:
-        sub_rows = tile_rows
     light_i = cfg.light_index if cfg.light_index >= 0 else n_quads - 1
     n_obj = n_spheres + n_quadrics + n_quads
     env_sky = cfg.env == "sky"
@@ -1197,27 +767,22 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
     env_nee = cfg.nee == "env"
     assert not (env_nee and has_quad_light)
     use_lobe = (cfg.nee in ("sun", "env")) or cfg.metal_roughness_lobe
-    if bounce_hi is None:
-        bounce_hi = cfg.bounces
-    state_in = staged and bounce_lo > 0
-    n_sg = (n_obj if cfg.transparent_tint else 2 * n_obj) if param_grads else 0
-    layout = _state_layout(cfg, mesh_textured, n_sg if staged else 0) if staged else None
-    assert mesh_stream <= staged and mesh_stream <= has_mesh
+    shape = (block_rows, block_cols)
 
     def kernel(*args):
-        # cam (16,) SMEM: pos3 right3 up3 fwd3 ulen vlen aperture focus
-        # scalars (10,) SMEM: frame_counter, camera_is_moving (0/1), shape_k,
-        #   sun_dir xyz, sun_power, sky sun_e, sky gamma, sky horizon blend
-        # quads (n_quads, 20) SMEM: n3 v0..v3(12) color3 mat pad
-        # [spheres] (n_spheres, 21) SMEM: inv 4x4 row-major (16) color3 mat pad
-        # [quadrics] (12, 20) SMEM: inv(16) color3 mat, UNIT_INTERSECTORS order
-        # [mesh] mesh_s (18,) SMEM: inv(16) mat cull; nodes_f (Np, 16) VMEM
-        #   (aabb + float-encoded escape/row links); tris_d (Rp, 128) VMEM
-        #   (accel.cluster dense layout)
-        # bn (4, TH, W) VMEM; then 11 (TH, W) outputs (+6 miss-weight/dir
-        # planes when env == "hdri": the equirect fetch is deferred to XLA —
-        # a path misses at most once, so one set of planes is exact);
-        # param_grads appends one (n_sg, TH, W) ∂log-throughput output:
+        # cam (16,): pos3 right3 up3 fwd3 ulen vlen aperture focus
+        # scalars (17,): frame_counter, camera_is_moving (0/1), shape_k,
+        #   sun_dir xyz, sun_power, sky sun_e, sky gamma, sky horizon blend,
+        #   first absolute image row of this call, sun ONB u xyz, v xyz
+        # quads (n_quads, 20): n3 v0..v3(12) color3 mat pad
+        # [spheres] (n_spheres, 21): inv 4x4 row-major (16) color3 mat pad
+        # [quadrics] (12, 20): inv(16) color3 mat, UNIT_INTERSECTORS order
+        # [mesh] mesh_s (18,): inv(16) mat cull; nodes (N4, 32) BVH4
+        #   records; tris (R, 128) triangle rows (accel.cluster.Bvh4BVH)
+        # bn (n_draw, BR, BC) block; then 11 (BR, BC) outputs (+6 miss-weight
+        # /dir planes when env == "hdri": the equirect fetch is deferred to
+        # XLA — a path misses at most once, so one set of planes is exact);
+        # param_grads appends one (n_sg, BR, BC) ∂log-throughput output:
         # n_obj linear-hit-count planes (+ n_obj Beer Σ0.01·t planes when
         # absorption is on); the 1/color factors are applied in f_bwd
         cam_ref, scalars_ref, quads_ref = args[0:3]
@@ -1229,173 +794,95 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
         if n_quadrics:
             qdr_ref = args[i_arg]
             i_arg += 1
-        mesh_s_ref = mnodes_f_ref = mtris_ref = mwoop_ref = None
+        mesh_s_ref = mnodes_ref = mtris_ref = None
         if has_mesh:
-            mesh_s_ref, mnodes_f_ref, mtris_ref = args[i_arg:i_arg + 3]
+            mesh_s_ref, mnodes_ref, mtris_ref = args[i_arg:i_arg + 3]
             i_arg += 3
-            if mesh_woop:
-                mwoop_ref = args[i_arg]
-                i_arg += 1
         bn_ref = args[i_arg]
         i_arg += 1
-        st_in_ref = st_out_ref = pix_ref = stream_refs = None
-        if staged:
-            # staged (sorted-wavefront) phase: per-lane state rides ONE
-            # (S, TH, W) plane stack in and out; the driver permutes lanes
-            # between phases (the ray-reordering seam).  The ray-gen phase
-            # instead takes a (4, TH, W) pixel stack [px, py, frame, fslot]
-            # — the driver chooses the lane↔(frame, pixel) layout freely
-            # (multi-frame fusion, block-contiguous orderings), and the
-            # kernel never consults program_id for identity.
-            if state_in:
-                st_in_ref = args[i_arg]
-                i_arg += 1
-            else:
-                pix_ref = args[i_arg]
-                i_arg += 1
-            st_out_ref = args[i_arg]
+        (col_r, col_g, col_b, onx, ony, onz, ocr, ocg, ocb, oid, osh) = args[i_arg:i_arg + 11]
+        i_arg += 11
+        if env_hdri:
+            (mw_r_o, mw_g_o, mw_b_o, md_x_o, md_y_o, md_z_o) = args[i_arg:i_arg + 6]
+            i_arg += 6
+        if mesh_textured:
+            # deferred PBR records: per-bounce albedo-factor UVs (u < 0 ⇒
+            # no factor this bounce) + one emissive-terminal record
+            # (throughput + UV) — the texel fetches happen outside the
+            # kernel, exactly once per plane (see trace_image_pallas).
+            alb_ref = args[i_arg]  # (2 * bounces, BR, BC): u, v per bounce
             i_arg += 1
-            if mesh_stream:
-                n_scr = 4 if mesh_woop else 2
-                stream_refs = args[i_arg:i_arg + n_scr]
-                i_arg += n_scr
-        else:
-            (col_r, col_g, col_b, onx, ony, onz, ocr, ocg, ocb, oid, osh) = args[i_arg:i_arg + 11]
-            i_arg += 11
-            if env_hdri:
-                (mw_r_o, mw_g_o, mw_b_o, md_x_o, md_y_o, md_z_o) = args[i_arg:i_arg + 6]
-                i_arg += 6
-            if mesh_textured:
-                # deferred PBR records: per-bounce albedo-factor UVs (u < 0 ⇒
-                # no factor this bounce) + one emissive-terminal record
-                # (throughput + UV) — the texel fetches happen outside the
-                # kernel, exactly once per plane (see trace_image_pallas).
-                alb_uv_o = args[i_arg:i_arg + 2 * cfg.bounces]
-                i_arg += 2 * cfg.bounces
-                (em_r_o, em_g_o, em_b_o, em_u_o, em_v_o) = args[i_arg:i_arg + 5]
-                i_arg += 5
-            maybe_sg = args[i_arg:]
+            (em_r_o, em_g_o, em_b_o, em_u_o, em_v_o) = args[i_arg:i_arg + 5]
+            i_arg += 5
+        maybe_sg = args[i_arg:]
         f32 = jnp.float32
 
-        moving = scalars_ref[1] > 0.5
-        if staged:
-            # per-lane pixel identity AND frame counter (multi-frame lane
-            # pools fuse several progressive frames into one sorted
-            # wavefront; each lane's RNG is keyed by ITS (frame, pixel))
-            src = st_in_ref if state_in else pix_ref
-            if state_in:
-                px_f = src[layout.index("px")]
-                py_f = src[layout.index("py")]
-                frame = src[layout.index("fr")]
-                fslot = src[layout.index("fslot")]
-            else:
-                px_f, py_f, frame, fslot = src[0], src[1], src[2], src[3]
-        else:
-            frame = scalars_ref[0]
+        frame = scalars_ref[0]
         fu = frame.astype(jnp.int32).astype(jnp.uint32)
+        row0 = pl.program_id(0) * block_rows + scalars_ref[10].astype(jnp.int32)
+        col0 = pl.program_id(1) * block_cols
+        py_i = jax.lax.broadcasted_iota(jnp.int32, shape, 0) + row0
+        px_i = jax.lax.broadcasted_iota(jnp.int32, shape, 1) + col0
+        px_f = px_i.astype(f32)
+        py_f = py_i.astype(f32)
+        # --- RNG seeds (absolute pixel coords) ---------------------------
+        sx = fu * px_i.astype(jnp.uint32)
+        sy = (fu + 1) * py_i.astype(jnp.uint32)
 
-        if not state_in:
-            if staged:
-                pxu = px_f.astype(jnp.int32).astype(jnp.uint32)
-                pyu = py_f.astype(jnp.int32).astype(jnp.uint32)
-            else:
-                row0 = pl.program_id(0) * tile_rows
-                col0 = pl.program_id(1) * tile_cols
-                py_i = jax.lax.broadcasted_iota(jnp.int32, (tile_rows, tile_cols), 0) + row0
-                px_i = jax.lax.broadcasted_iota(jnp.int32, (tile_rows, tile_cols), 1) + col0
-                px_f = px_i.astype(f32)
-                py_f = py_i.astype(f32)
-                pxu = px_i.astype(jnp.uint32)
-                pyu = py_i.astype(jnp.uint32)
-            # --- RNG seeds (absolute pixel coords) -----------------------
-            sx = fu * pxu
-            sy = (fu + 1) * pyu
-        else:
-            # lanes are permuted: absolute pixel coords ride the state, and
-            # the fixed schedule lets the stream resume at a pure offset —
-            # draw j uses seed + j, so seed + draws_before(bounce_lo).
-            dpb = 2 + (3 if has_quad_light else 0) + (2 if use_lobe else 0)
-            off = 4 + bounce_lo * dpb
-            sx = fu * px_f.astype(jnp.int32).astype(jnp.uint32) + off
-            sy = (fu + 1) * py_f.astype(jnp.int32).astype(jnp.uint32) + off
+        zeros = jnp.zeros(shape, f32)
+        ones = jnp.ones(shape, f32)
+        # --- ray-gen: tent AA + thin-lens DoF (4 draws) ------------------
+        tx, sx, sy = _rng_next(sx, sy)
+        ty, sx, sy = _rng_next(sx, sy)
+        ox = _tent(tx)
+        oy = _tent(ty)
+        ndc_x = ((px_f + 0.5 + ox) / width) * 2.0 - 1.0
+        ndc_y = ((py_f + 0.5 + oy) / height) * 2.0 - 1.0
+        ulen = cam_ref[12]
+        vlen = cam_ref[13]
+        rdx = ndc_x * cam_ref[3] * ulen + ndc_y * cam_ref[6] * vlen + cam_ref[9]
+        rdy = ndc_x * cam_ref[4] * ulen + ndc_y * cam_ref[7] * vlen + cam_ref[10]
+        rdz = ndc_x * cam_ref[5] * ulen + ndc_y * cam_ref[8] * vlen + cam_ref[11]
+        rdx, rdy, rdz = _normalize(rdx, rdy, rdz)
+        ra, sx, sy = _rng_next(sx, sy)
+        rr, sx, sy = _rng_next(sx, sy)
+        angle = ra * TWO_PI
+        radius = rr * cam_ref[14]
+        sr = _safe_sqrt(radius)
+        apx = (jnp.cos(angle) * cam_ref[3] + jnp.sin(angle) * cam_ref[6]) * sr
+        apy = (jnp.cos(angle) * cam_ref[4] + jnp.sin(angle) * cam_ref[7]) * sr
+        apz = (jnp.cos(angle) * cam_ref[5] + jnp.sin(angle) * cam_ref[8]) * sr
+        focus = cam_ref[15]
+        rdx, rdy, rdz = _normalize(focus * rdx - apx, focus * rdy - apy, focus * rdz - apz)
+        rox = cam_ref[0] + apx
+        roy = cam_ref[1] + apy
+        roz = cam_ref[2] + apz
 
-        zeros = jnp.zeros((tile_rows, tile_cols), f32)
-        ones = jnp.ones((tile_rows, tile_cols), f32)
-        if not state_in:
-            # --- ray-gen: tent AA + thin-lens DoF (4 draws) --------------
-            tx, sx, sy = _rng_next(sx, sy)
-            ty, sx, sy = _rng_next(sx, sy)
-            ox = _tent(tx)
-            oy = _tent(ty)
-            ndc_x = ((px_f + 0.5 + ox) / width) * 2.0 - 1.0
-            ndc_y = ((py_f + 0.5 + oy) / height) * 2.0 - 1.0
-            ulen = cam_ref[12]
-            vlen = cam_ref[13]
-            rdx = ndc_x * cam_ref[3] * ulen + ndc_y * cam_ref[6] * vlen + cam_ref[9]
-            rdy = ndc_x * cam_ref[4] * ulen + ndc_y * cam_ref[7] * vlen + cam_ref[10]
-            rdz = ndc_x * cam_ref[5] * ulen + ndc_y * cam_ref[8] * vlen + cam_ref[11]
-            rdx, rdy, rdz = _normalize(rdx, rdy, rdz)
-            ra, sx, sy = _rng_next(sx, sy)
-            rr, sx, sy = _rng_next(sx, sy)
-            angle = ra * TWO_PI
-            radius = rr * cam_ref[14]
-            sr = _safe_sqrt(radius)
-            apx = (jnp.cos(angle) * cam_ref[3] + jnp.sin(angle) * cam_ref[6]) * sr
-            apy = (jnp.cos(angle) * cam_ref[4] + jnp.sin(angle) * cam_ref[7]) * sr
-            apz = (jnp.cos(angle) * cam_ref[5] + jnp.sin(angle) * cam_ref[8]) * sr
-            focus = cam_ref[15]
-            rdx, rdy, rdz = _normalize(focus * rdx - apx, focus * rdy - apy, focus * rdz - apz)
-            rox = cam_ref[0] + apx
-            roy = cam_ref[1] + apy
-            roz = cam_ref[2] + apz
-
-            # --- per-path state ------------------------------------------
-            acc_r = zeros
-            acc_g = zeros
-            acc_b = zeros
-            m_r = ones
-            m_g = ones
-            m_b = ones
-            alive = ones > 0.0
-            spec = ones > 0.0
-            samp_l = zeros > 1.0
-            coat = zeros > 1.0
-            d_cnt = jnp.zeros((tile_rows, tile_cols), jnp.int32)
-            sharp = zeros
-            obj_nx = zeros
-            obj_ny = zeros
-            obj_nz = zeros
-            obj_cr = zeros
-            obj_cg = zeros
-            obj_cb = zeros
-            obj_id = jnp.full((tile_rows, tile_cols), -INFINITY, f32)
-            prev_metal = zeros > 1.0
-            if env_sky or env_hdri:
-                # only the env miss chains read prev_trans; keeping the
-                # carry in the Cornell-family compile costs real vector ops
-                # per bounce
-                prev_trans = zeros > 1.0
-        else:
-            # --- resume per-path state from the (permuted) plane stack ---
-            def L(name):
-                return st_in_ref[layout.index(name)]
-
-            rox, roy, roz = L("rox"), L("roy"), L("roz")
-            rdx, rdy, rdz = L("rdx"), L("rdy"), L("rdz")
-            m_r, m_g, m_b = L("m_r"), L("m_g"), L("m_b")
-            acc_r, acc_g, acc_b = L("acc_r"), L("acc_g"), L("acc_b")
-            alive = L("alive") > 0.5
-            spec = L("spec") > 0.5
-            samp_l = L("samp_l") > 0.5
-            coat = L("coat") > 0.5
-            d_cnt = L("d_cnt").astype(jnp.int32)
-            sharp = L("sharp")
-            prev_metal = L("prev_metal") > 0.5
-            obj_nx, obj_ny, obj_nz = L("obj_nx"), L("obj_ny"), L("obj_nz")
-            obj_cr, obj_cg, obj_cb = L("obj_cr"), L("obj_cg"), L("obj_cb")
-            obj_id = L("obj_id")
-            if env_sky or env_hdri:
-                prev_trans = L("prev_trans") > 0.5
+        # --- per-path state ----------------------------------------------
+        acc_r = zeros
+        acc_g = zeros
+        acc_b = zeros
+        m_r = ones
+        m_g = ones
+        m_b = ones
+        alive = ones > 0.0
+        spec = ones > 0.0
+        samp_l = zeros > 1.0
+        coat = zeros > 1.0
+        d_cnt = jnp.zeros(shape, jnp.int32)
+        sharp = zeros
+        obj_nx = zeros
+        obj_ny = zeros
+        obj_nz = zeros
+        obj_cr = zeros
+        obj_cg = zeros
+        obj_cb = zeros
+        obj_id = jnp.full(shape, -INFINITY, f32)
+        prev_metal = zeros > 1.0
+        if env_sky or env_hdri:
+            # only the env miss chains read prev_trans; keeping the carry in
+            # the Cornell-family compile costs real vector ops per bounce
+            prev_trans = zeros > 1.0
 
         if has_quad_light:
             lv0x = quads_ref[light_i, 3]
@@ -1422,82 +909,85 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                 sky_sun_e = scalars_ref[7]
                 sky_gamma = scalars_ref[8]
                 sky_blend = scalars_ref[9]
-            # ONB about the sun (cross-trick, PathTracingCommon.js:527-528)
-            s_up = jnp.abs(suny) < 0.9
-            shx = jnp.where(s_up, 0.0, 1.0)
-            shy = jnp.where(s_up, 1.0, 0.0)
-            sux = shy * sunz
-            suy = -shx * sunz
-            suz = shx * suny - shy * sunx
-            s_inv = 1.0 / jnp.sqrt(jnp.maximum(sux * sux + suy * suy + suz * suz, 1e-20))
-            sux, suy, suz = sux * s_inv, suy * s_inv, suz * s_inv
-            svx = suny * suz - sunz * suy
-            svy = sunz * sux - sunx * suz
-            svz = sunx * suy - suny * sux
+            # ONB about the sun (computed in _setup_inputs)
+            sux, suy, suz = scalars_ref[11], scalars_ref[12], scalars_ref[13]
+            svx, svy, svz = scalars_ref[14], scalars_ref[15], scalars_ref[16]
 
         if env_hdri:
             # deferred-env records: weight + direction at the (single) miss
-            if state_in:
-                mw_r, mw_g, mw_b = L("mw_r"), L("mw_g"), L("mw_b")
-                md_x, md_y, md_z = L("md_x"), L("md_y"), L("md_z")
-            else:
-                mw_r = zeros
-                mw_g = zeros
-                mw_b = zeros
-                md_x = zeros
-                md_y = zeros
-                md_z = zeros
+            mw_r = zeros
+            mw_g = zeros
+            mw_b = zeros
+            md_x = zeros
+            md_y = zeros
+            md_z = zeros
 
         if mesh_textured:
-            # alb_uv[b]: this bounce's deferred albedo-factor record
-            # (u-or-minus-one, v); non-executed bounces keep the sentinel /
-            # pass through the incoming state
-            if state_in:
-                em_w_r, em_w_g, em_w_b = L("em_r"), L("em_g"), L("em_b")
-                em_u, em_v = L("em_u"), L("em_v")
-                alb_uv = {
-                    b: (L(f"alb_u{b}"), L(f"alb_v{b}")) for b in range(cfg.bounces)
-                }
-            else:
-                em_w_r = zeros
-                em_w_g = zeros
-                em_w_b = zeros
-                em_u = zeros
-                em_v = zeros
-                alb_uv = {b: (zeros - 1.0, zeros) for b in range(cfg.bounces)}
+            # emissive-terminal record (throughput + UV); the per-bounce
+            # albedo-factor records (u-or-minus-one, v) go straight to alb_ref
+            em_w_r = zeros
+            em_w_g = zeros
+            em_w_b = zeros
+            em_u = zeros
+            em_v = zeros
 
         # path-replay ∂log-throughput accumulators.  One plane per OBJECT
         # (not per object-channel): every linear throughput factor equals
         # the hit object's color *constant* color[j, c], so the per-channel
         # 1/color division is deferred to the host-side backward — the
         # kernel only counts hits (and, for Beer-Lambert, sums 0.01·t).
-        if param_grads and state_in:
-            # staged resume: accumulators ride the state planes
-            sg = [st_in_ref[layout.index(f"sg{j}")] for j in range(n_obj)]
-            sgb = (
-                [st_in_ref[layout.index(f"sg{n_obj + j}")] for j in range(n_obj)]
-                if not cfg.transparent_tint
-                else None
-            )
-        else:
-            sg = [zeros for _ in range(n_obj)] if param_grads else None
-            sgb = (
-                [zeros for _ in range(n_obj)]
-                if param_grads and not cfg.transparent_tint
-                else None
-            )
+        sg = [zeros for _ in range(n_obj)] if param_grads else None
+        sgb = (
+            [zeros for _ in range(n_obj)]
+            if param_grads and not cfg.transparent_tint
+            else None
+        )
 
-        for bounce in range(bounce_lo, bounce_hi):
+        # The bounce loop is a fori_loop (not unrolled): one copy of the
+        # intersect/shade code keeps the Triton compile time bounded.  State
+        # that crosses bounces rides the carry dict below.
+        names = [
+            "rox", "roy", "roz", "rdx", "rdy", "rdz", "m_r", "m_g", "m_b",
+            "acc_r", "acc_g", "acc_b", "alive", "spec", "samp_l", "coat",
+            "d_cnt", "sharp", "prev_metal", "obj_nx", "obj_ny", "obj_nz",
+            "obj_cr", "obj_cg", "obj_cb", "obj_id", "sx", "sy",
+        ]
+        if env_sky or env_hdri:
+            names.append("prev_trans")
+        if env_hdri:
+            names += ["mw_r", "mw_g", "mw_b", "md_x", "md_y", "md_z"]
+        if mesh_textured:
+            names += ["em_w_r", "em_w_g", "em_w_b", "em_u", "em_v"]
+        scope = locals()
+        carry = {k: scope[k] for k in names}
+        if param_grads:
+            carry["sg"] = tuple(sg)
+            if sgb is not None:
+                carry["sgb"] = tuple(sgb)
+
+        def bounce_body(bounce, state):
+            rox, roy, roz, rdx, rdy, rdz = (state[k] for k in names[0:6])
+            m_r, m_g, m_b, acc_r, acc_g, acc_b = (state[k] for k in names[6:12])
+            alive, spec, samp_l, coat, d_cnt, sharp, prev_metal = (state[k] for k in names[12:19])
+            obj_nx, obj_ny, obj_nz, obj_cr, obj_cg, obj_cb, obj_id = (state[k] for k in names[19:26])
+            sx, sy = state["sx"], state["sy"]
+            prev_trans = state.get("prev_trans")
+            mw_r, mw_g, mw_b, md_x, md_y, md_z = (state.get(k) for k in ("mw_r", "mw_g", "mw_b", "md_x", "md_y", "md_z"))
+            em_w_r, em_w_g, em_w_b, em_u, em_v = (state.get(k) for k in ("em_w_r", "em_w_g", "em_w_b", "em_u", "em_v"))
+            sg = list(state["sg"]) if "sg" in state else None
+            sgb = list(state["sgb"]) if "sgb" in state else None
+            first = bounce == 0
+
             # ---- scene intersect: all quads + spheres, keep nearest -----
-            t_best = jnp.full((tile_rows, tile_cols), INFINITY, f32)
+            t_best = jnp.full(shape, INFINITY, f32)
             nx = zeros
             ny = ones
             nz = zeros
             hc_r = zeros
             hc_g = zeros
             hc_b = zeros
-            mat = jnp.full((tile_rows, tile_cols), -100.0, f32)
-            hid = jnp.full((tile_rows, tile_cols), -INFINITY, f32)
+            mat = jnp.full(shape, -100.0, f32)
+            hid = jnp.full(shape, -INFINITY, f32)
 
             oid_counter = 0
             for s in range(n_spheres):
@@ -1589,8 +1079,8 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                     # intersection + dual-basis inside test, analytically
                     # identical to the two Möller-Trumbore fans below —
                     # including the cull (both fans' dets equal -rd·(e1×e3))
-                    # — at ~1/3 the vector-op count.  Scalar (SMEM) algebra
-                    # is hoisted out of the vector pipeline by Mosaic.
+                    # — at ~1/3 the vector-op count.  The scalar algebra is
+                    # per block, outside the per-lane work.
                     e1x, e1y, e1z = Q(6) - Q(3), Q(7) - Q(4), Q(8) - Q(5)
                     e3x, e3y, e3z = Q(12) - Q(3), Q(13) - Q(4), Q(14) - Q(5)
                     ngx = e1y * e3z - e1z * e3y
@@ -1626,7 +1116,7 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                     t_q = jnp.where(miss, INFINITY, tt)
                 else:
                     # two Möller-Trumbore fans: (v0,v1,v2) and (v0,v2,v3)
-                    t_q = jnp.full((tile_rows, tile_cols), INFINITY, f32)
+                    t_q = jnp.full(shape, INFINITY, f32)
                     for (ax_, ay_, az_, bx_, by_, bz_) in (
                         (Q(6) - Q(3), Q(7) - Q(4), Q(8) - Q(5), Q(9) - Q(3), Q(10) - Q(4), Q(11) - Q(5)),
                         (Q(9) - Q(3), Q(10) - Q(4), Q(11) - Q(5), Q(12) - Q(3), Q(13) - Q(4), Q(14) - Q(5)),
@@ -1670,72 +1160,14 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                 mrd_y = MM(1, 0) * rdx + MM(1, 1) * rdy + MM(1, 2) * rdz
                 mrd_z = MM(2, 0) * rdx + MM(2, 1) * rdy + MM(2, 2) * rdz
                 cull_m = mesh_s_ref[17] > 0.5
-                # Packet granularity: a shared scalar cursor over more lanes
-                # skips fewer subtrees.  sub_rows == tile_rows → one
-                # whole-tile packet (least code, every scalar fetch once per
-                # tile — fastest for coherent/small meshes like the teapot);
-                # sub_rows == 8 → per-(8, cols) sub-packets whose unions stay
-                # tight under secondary-bounce divergence (measured ~2× on
-                # DamagedHelmet-class meshes, worth the repeated fetches).
-                stream = (
-                    tuple(stream_refs) if mesh_stream else None
+                walk = _mesh_walk(
+                    (mro_x, mro_y, mro_z), (mrd_x, mrd_y, mrd_z),
+                    cull_m, mnodes_ref, mtris_ref, n_nodes, t_best,
+                    active=alive,
+                    textured=mesh_textured,
                 )
-
-                def pkt_base(rx, ry, rz, act_b):
-                    """Majority direction octant of the packet's live lanes
-                    -> base row of the matching near-first node layout.
-                    Any octant yields CORRECT hits (all layouts walk the
-                    same tree); the majority one maximizes early-t pruning
-                    for direction-sorted packets."""
-                    if not mesh_oct:
-                        return None
-                    if act_b is None:
-                        tot = float(rx.shape[0] * rx.shape[1])
-                        cnt = lambda v: jnp.sum(jnp.where(v > 0.0, 1.0, 0.0))
-                    else:
-                        a = act_b
-                        tot = jnp.sum(jnp.where(a, 1.0, 0.0))
-                        cnt = lambda v: jnp.sum(
-                            jnp.where(a & (v > 0.0), 1.0, 0.0))
-                    oct = (
-                        (2.0 * cnt(rx) > tot).astype(jnp.int32) * 4
-                        + (2.0 * cnt(ry) > tot).astype(jnp.int32) * 2
-                        + (2.0 * cnt(rz) > tot).astype(jnp.int32)
-                    )
-                    return oct * n_nodes_p
-
-                if sub_rows >= tile_rows:
-                    act_w = alive if bounce else None
-                    walk = _mesh_walk(
-                        (mro_x, mro_y, mro_z), (mrd_x, mrd_y, mrd_z),
-                        cull_m, mnodes_f_ref, mtris_ref,
-                        n_nodes_p, t_best, active=act_w,
-                        textured=mesh_textured, stream=stream,
-                        base=pkt_base(mrd_x, mrd_y, mrd_z, act_w),
-                        woop_ref=mwoop_ref,
-                    )
-                else:
-                    parts = []
-                    for s0 in range(0, tile_rows, sub_rows):
-                        sl = slice(s0, s0 + sub_rows)
-                        act_w = alive[sl] if bounce else None
-                        walk_s = _mesh_walk(
-                            (mro_x[sl], mro_y[sl], mro_z[sl]),
-                            (mrd_x[sl], mrd_y[sl], mrd_z[sl]),
-                            cull_m, mnodes_f_ref, mtris_ref,
-                            n_nodes_p, t_best[sl],
-                            active=act_w,
-                            textured=mesh_textured, stream=stream,
-                            base=pkt_base(mrd_x[sl], mrd_y[sl], mrd_z[sl], act_w),
-                            woop_ref=mwoop_ref,
-                        )
-                        parts.append(walk_s)
-                    walk = tuple(
-                        jnp.concatenate([p[k] for p in parts], axis=0)
-                        for k in range(len(parts[0]))
-                    )
                 t_m, mnx, mny, mnz, m_u, m_v, hit_m = walk[:7]
-                hit_m = hit_m & alive if bounce else hit_m
+                hit_m = hit_m & alive
                 # world shading normal: transpose(inv3x3) @ n_obj
                 wnx = MM(0, 0) * mnx + MM(1, 0) * mny + MM(2, 0) * mnz
                 wny = MM(0, 1) * mnx + MM(1, 1) * mny + MM(2, 1) * mnz
@@ -1789,24 +1221,20 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                 sky_r, sky_g, sky_b = _sky_color_c(
                     rdx, rdy, rdz, sunx, suny, sunz, sky_sun_e, sky_gamma, sky_blend
                 )
-                if bounce == 0:
-                    acc_r = jnp.where(m_env, sky_r, acc_r)
-                    acc_g = jnp.where(m_env, sky_g, acc_g)
-                    acc_b = jnp.where(m_env, sky_b, acc_b)
-                    sharp = jnp.where(m_env, 1.01, sharp)
-                else:
-                    cos_vs = rdx * sunx + rdy * suny + rdz * sunz
-                    c2 = (d_cnt == 0) & spec
-                    c3 = samp_l
-                    c4 = (d_cnt == 1) & prev_trans & spec
-                    c5 = d_cnt > 0
-                    sun_clip = jnp.where(cos_vs < 0.99, 1.0, 0.0)
-                    full = c2 | c3 | c4
-                    env_w = jnp.where(full, 1.0, jnp.where(c5, sun_clip, 0.0))
-                    acc_r = jnp.where(m_env, m_r * sky_r * env_w, acc_r)
-                    acc_g = jnp.where(m_env, m_g * sky_g * env_w, acc_g)
-                    acc_b = jnp.where(m_env, m_b * sky_b * env_w, acc_b)
-                    sharp = jnp.where(m_env & c2, 1.01, sharp)
+                # (on the first bounce c2 holds on every lane and the
+                # throughput is 1, so this is the primary-miss case too)
+                cos_vs = rdx * sunx + rdy * suny + rdz * sunz
+                c2 = (d_cnt == 0) & spec
+                c3 = samp_l
+                c4 = (d_cnt == 1) & prev_trans & spec
+                c5 = d_cnt > 0
+                sun_clip = _select(cos_vs < 0.99, 1.0, 0.0)
+                full = c2 | c3 | c4
+                env_w = jnp.where(full, 1.0, jnp.where(c5, sun_clip, 0.0))
+                acc_r = jnp.where(m_env, m_r * sky_r * env_w, acc_r)
+                acc_g = jnp.where(m_env, m_g * sky_g * env_w, acc_g)
+                acc_b = jnp.where(m_env, m_b * sky_b * env_w, acc_b)
+                sharp = jnp.where(m_env & c2, 1.01, sharp)
 
             if env_hdri:
                 # HDRI miss: record direction + throughput-weighted case
@@ -1814,34 +1242,29 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                 # Case chain = HDRIEnvironmentPathTracing_FragmentShader.js:
                 # 412-437 (c4 additionally gated bounces < 3).
                 m_env = alive & miss
-                if bounce == 0:
-                    mw_r = jnp.where(m_env, 1.0, mw_r)
-                    mw_g = jnp.where(m_env, 1.0, mw_g)
-                    mw_b = jnp.where(m_env, 1.0, mw_b)
-                    sharp = jnp.where(m_env, 1.01, sharp)
+                # (on the first bounce c2 holds on every lane and the
+                # throughput is 1: the primary-miss case)
+                cos_vs = rdx * sunx + rdy * suny + rdz * sunz
+                c2 = (d_cnt == 0) & spec
+                c3 = samp_l
+                c4 = (d_cnt == 1) & prev_trans & spec & (bounce < 3)
+                c5 = d_cnt > 0
+                if env_nee:
+                    # env NEE covers the whole map at every diffuse
+                    # vertex — BSDF-sampled env hits after a diffuse
+                    # bounce would double count (radiance.py:166-172)
+                    sun_clip = zeros
                 else:
-                    cos_vs = rdx * sunx + rdy * suny + rdz * sunz
-                    c2 = (d_cnt == 0) & spec
-                    c3 = samp_l
-                    c4 = (d_cnt == 1) & prev_trans & spec if bounce < 3 else None
-                    c5 = d_cnt > 0
-                    if env_nee:
-                        # env NEE covers the whole map at every diffuse
-                        # vertex — BSDF-sampled env hits after a diffuse
-                        # bounce would double count (radiance.py:166-172)
-                        sun_clip = zeros
-                    else:
-                        sun_clip = jnp.where(cos_vs < 0.99, 1.0, 0.0)
-                    full = (c2 | c3 | c4) if c4 is not None else (c2 | c3)
-                    env_w = jnp.where(full, 1.0, jnp.where(c5, sun_clip, 0.0))
-                    mw_r = jnp.where(m_env, m_r * env_w, mw_r)
-                    mw_g = jnp.where(m_env, m_g * env_w, mw_g)
-                    mw_b = jnp.where(m_env, m_b * env_w, mw_b)
-                    sharp = jnp.where(m_env & c2, 1.01, sharp)
-                    if c4 is not None:
-                        sharp = jnp.where(
-                            m_env & ~c2 & ~c3 & c4 & (cos_vs > 0.99), 1.01, sharp
-                        )
+                    sun_clip = _select(cos_vs < 0.99, 1.0, 0.0)
+                full = c2 | c3 | c4
+                env_w = jnp.where(full, 1.0, jnp.where(c5, sun_clip, 0.0))
+                mw_r = jnp.where(m_env, m_r * env_w, mw_r)
+                mw_g = jnp.where(m_env, m_g * env_w, mw_g)
+                mw_b = jnp.where(m_env, m_b * env_w, mw_b)
+                sharp = jnp.where(m_env & c2, 1.01, sharp)
+                sharp = jnp.where(
+                    m_env & ~c2 & ~c3 & c4 & (cos_vs > 0.99), 1.01, sharp
+                )
                 md_x = jnp.where(m_env, rdx, md_x)
                 md_y = jnp.where(m_env, rdy, md_y)
                 md_z = jnp.where(m_env, rdz, md_z)
@@ -1850,20 +1273,19 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
             lane = alive
 
             # ---- first-hit records --------------------------------------
-            if bounce == 0:
-                obj_nx = jnp.where(lane, nlx, obj_nx)
-                obj_ny = jnp.where(lane, nly, obj_ny)
-                obj_nz = jnp.where(lane, nlz, obj_nz)
-                obj_cr = jnp.where(lane, hc_r, obj_cr)
-                obj_cg = jnp.where(lane, hc_g, obj_cg)
-                obj_cb = jnp.where(lane, hc_b, obj_cb)
-                obj_id = jnp.where(lane, hid, obj_id)
-            if bounce == 1:
-                am = lane & prev_metal
-                obj_nx = jnp.where(am, nlx, obj_nx)
-                obj_ny = jnp.where(am, nly, obj_ny)
-                obj_nz = jnp.where(am, nlz, obj_nz)
-                obj_id = jnp.where(am, hid, obj_id)
+            l0 = lane & first
+            obj_nx = jnp.where(l0, nlx, obj_nx)
+            obj_ny = jnp.where(l0, nly, obj_ny)
+            obj_nz = jnp.where(l0, nlz, obj_nz)
+            obj_cr = jnp.where(l0, hc_r, obj_cr)
+            obj_cg = jnp.where(l0, hc_g, obj_cg)
+            obj_cb = jnp.where(l0, hc_b, obj_cb)
+            obj_id = jnp.where(l0, hid, obj_id)
+            am = lane & prev_metal & (bounce == 1)
+            obj_nx = jnp.where(am, nlx, obj_nx)
+            obj_ny = jnp.where(am, nly, obj_ny)
+            obj_nz = jnp.where(am, nlz, obj_nz)
+            obj_id = jnp.where(am, hid, obj_id)
 
             # ---- light hit ----------------------------------------------
             if has_quad_light:
@@ -1898,8 +1320,8 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                 lane = alive
 
             # ---- fixed-schedule draws -----------------------------------
-            ch1 = (2 * bounce) % 4
-            ch2 = (2 * bounce + 1) % 4
+            ch1 = (2 * bounce) & 3  # (2b) % 4; bitwise on the traced bounce
+            ch2 = (2 * bounce + 1) & 3
             gate1 = bn_ref[ch1]
             gate2 = bn_ref[ch2]
             hr, sx, sy = _rng_next(sx, sy)
@@ -1912,8 +1334,8 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
             hz_ = _safe_sqrt(1.0 - hx_ * hx_ - hy_ * hy_)
             # ONB about nl (cross-trick)
             up_y = jnp.abs(nly) < 0.9
-            helx = jnp.where(up_y, 0.0, 1.0)
-            hely = jnp.where(up_y, 1.0, 0.0)
+            helx = jnp.where(up_y, zeros, ones)
+            hely = jnp.where(up_y, ones, zeros)
             ux, uy, uz = _cross(helx, hely, zeros, nlx, nly, nlz)
             ux, uy, uz = _normalize(ux, uy, uz)
             vx, vy, vz = _cross(nlx, nly, nlz, ux, uy, uz)
@@ -1952,8 +1374,6 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
             # (radiance.py) — with nee == "env" the pair is still consumed
             # in-kernel (stream parity + the metal lobe), while the env
             # sample they seed was computed host-side from the SAME draws.
-            # (`use_lobe` is hoisted to _make_kernel scope: the staged-mode
-            # RNG offset needs it before the loop.)
             if use_lobe:
                 lc_, sx, sy = _rng_next(sx, sy)
                 lp_, sx, sy = _rng_next(sx, sy)
@@ -2034,8 +1454,8 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                 mst = _safe_sqrt(1.0 - mct * mct)
                 mphi = lp_ * TWO_PI
                 r_up = jnp.abs(rfy) < 0.9
-                rhx = jnp.where(r_up, 0.0, 1.0)
-                rhy = jnp.where(r_up, 1.0, 0.0)
+                rhx = _select(r_up, 0.0, 1.0)
+                rhy = _select(r_up, 1.0, 0.0)
                 rux, ruy, ruz = _cross(rhx, rhy, zeros, rfx, rfy, rfz)
                 rux, ruy, ruz = _normalize(rux, ruy, ruz)
                 rvx, rvy, rvz = _cross(rfx, rfy, rfz, rux, ruy, ruz)
@@ -2053,8 +1473,8 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
             # TRANSPARENT: Fresnel with geometric n
             cosi = jnp.clip(_dot(rdx, rdy, rdz, nx, ny, nz), -1.0, 1.0)
             inside = cosi > 0.0
-            ei = jnp.where(inside, 1.5, 1.0)
-            et = jnp.where(inside, 1.0, 1.5)
+            ei = _select(inside, 1.5, 1.0)
+            et = _select(inside, 1.0, 1.5)
             ratio = ei / et
             sint = ratio * _safe_sqrt(1.0 - cosi * cosi)
             tir = sint >= 1.0
@@ -2091,19 +1511,19 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
             rd_ty = jnp.where(go_refl_t, rfy, tdy)
             rd_tz = jnp.where(go_refl_t, rfz, tdz)
             off_t = jnp.where(go_refl_t, eps, -eps)
-            # bool select -> logical ops (Mosaic can't lower vector i1 selects)
+            # bool select as logical ops
             spec_t = spec | (~go_refl_t & (d_cnt == 1))
             sharp_t = jnp.where(
                 (d_cnt == 0) & ~coat & (not cfg.camera_is_moving),
                 1.01,
-                jnp.where(d_cnt > 0, 0.0, -1.0),
+                _select(d_cnt > 0, 0.0, -1.0),
             )
 
             # CLEARCOAT (Fresnel with nl, IOR 1.4)
             cosc = jnp.clip(_dot(rdx, rdy, rdz, nlx, nly, nlz), -1.0, 1.0)
             in_c = cosc > 0.0
-            ei_c = jnp.where(in_c, 1.4, 1.0)
-            et_c = jnp.where(in_c, 1.0, 1.4)
+            ei_c = _select(in_c, 1.4, 1.0)
+            et_c = _select(in_c, 1.0, 1.4)
             ratio_c = ei_c / et_c
             sint_c = ratio_c * _safe_sqrt(1.0 - cosc * cosc)
             cost_c = _safe_sqrt(1.0 - sint_c * sint_c)
@@ -2128,7 +1548,7 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
             sl_c = ~go_refl_c & ~go_ind_c & (bounce < 3)
             sharp_c = jnp.where(
                 go_refl_c,
-                jnp.where(d_cnt == 0, jnp.where(frame > 500.0, 1.01, -1.0), 0.0),
+                jnp.where(d_cnt == 0, _select(frame > 500.0, 1.01, -1.0), 0.0),
                 0.0,
             )
 
@@ -2137,7 +1557,7 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                 # by hit_color on a textured-mesh hit (DIFFUSE, METAL,
                 # CLEARCOAT base) — composed outside as Π albedo(uv_b)^flag
                 alb_f = pbr_hit & (b_diff | b_metal | (b_coat & ~go_refl_c))
-                alb_uv[bounce] = (
+                alb_ref[2 * bounce], alb_ref[2 * bounce + 1] = (
                     jnp.where(alb_f, m_u, -1.0), jnp.where(alb_f, m_v, 0.0)
                 )
 
@@ -2188,7 +1608,7 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                 g_lin = b_diff | b_metal | (b_coat & ~go_refl_c) | lit
                 if cfg.transparent_tint:
                     g_lin = g_lin | (b_trans & ~go_refl_t)
-                g_lin_f = jnp.where(g_lin, 1.0, 0.0)
+                g_lin_f = _select(g_lin, 1.0, 0.0)
                 if not cfg.transparent_tint:
                     beer_f = jnp.where(
                         b_trans & ~go_refl_t & inside, 0.01 * t_best, 0.0
@@ -2199,41 +1619,22 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
                     if not cfg.transparent_tint:
                         sgb[j] = sgb[j] + jnp.where(mj, beer_f, 0.0)
 
-        if staged:
-            def bf(b):
-                return jnp.where(b, ones, zeros)
+            out = {k: v for k, v in locals().items() if k in names}
+            if sg is not None:
+                out["sg"] = tuple(sg)
+            if sgb is not None:
+                out["sgb"] = tuple(sgb)
+            return out
 
-            vals = {
-                "rox": rox, "roy": roy, "roz": roz,
-                "rdx": rdx, "rdy": rdy, "rdz": rdz,
-                "m_r": m_r, "m_g": m_g, "m_b": m_b,
-                "acc_r": acc_r, "acc_g": acc_g, "acc_b": acc_b,
-                "alive": bf(alive), "spec": bf(spec), "samp_l": bf(samp_l),
-                "coat": bf(coat), "d_cnt": d_cnt.astype(f32), "sharp": sharp,
-                "prev_metal": bf(prev_metal), "px": px_f, "py": py_f,
-                "fr": frame, "fslot": fslot,
-                "obj_nx": obj_nx, "obj_ny": obj_ny, "obj_nz": obj_nz,
-                "obj_cr": obj_cr, "obj_cg": obj_cg, "obj_cb": obj_cb,
-                "obj_id": obj_id,
-            }
-            if env_sky or env_hdri:
-                vals["prev_trans"] = bf(prev_trans)
-            if env_hdri:
-                vals.update(mw_r=mw_r, mw_g=mw_g, mw_b=mw_b,
-                            md_x=md_x, md_y=md_y, md_z=md_z)
-            if mesh_textured:
-                vals.update(em_r=em_w_r, em_g=em_w_g, em_b=em_w_b,
-                            em_u=em_u, em_v=em_v)
-                for b in range(cfg.bounces):
-                    vals[f"alb_u{b}"], vals[f"alb_v{b}"] = alb_uv[b]
-            if param_grads:
-                for j in range(n_obj):
-                    vals[f"sg{j}"] = sg[j]
-                    if sgb is not None:
-                        vals[f"sg{n_obj + j}"] = sgb[j]
-            for k, name in enumerate(layout):
-                st_out_ref[k] = vals[name]
-            return
+        state = jax.lax.fori_loop(0, cfg.bounces, bounce_body, carry)
+        acc_r, acc_g, acc_b, sharp = (state[k] for k in ("acc_r", "acc_g", "acc_b", "sharp"))
+        obj_nx, obj_ny, obj_nz, obj_cr, obj_cg, obj_cb, obj_id = (state[k] for k in names[19:26])
+        if env_hdri:
+            mw_r, mw_g, mw_b, md_x, md_y, md_z = (state[k] for k in ("mw_r", "mw_g", "mw_b", "md_x", "md_y", "md_z"))
+        if mesh_textured:
+            em_w_r, em_w_g, em_w_b, em_u, em_v = (state[k] for k in ("em_w_r", "em_w_g", "em_w_b", "em_u", "em_v"))
+        sg = list(state["sg"]) if param_grads else None
+        sgb = list(state["sgb"]) if "sgb" in state else None
 
         col_r[:] = jnp.maximum(acc_r, 0.0)
         col_g[:] = jnp.maximum(acc_g, 0.0)
@@ -2254,10 +1655,6 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
             md_y_o[:] = md_y
             md_z_o[:] = md_z
         if mesh_textured:
-            for b in range(cfg.bounces):
-                au, av = alb_uv[b]
-                alb_uv_o[2 * b][:] = au
-                alb_uv_o[2 * b + 1][:] = av
             em_r_o[:] = em_w_r
             em_g_o[:] = em_w_g
             em_b_o[:] = em_w_b
@@ -2278,7 +1675,7 @@ def _make_kernel(cfg: IntegratorConfig, n_quads: int, n_spheres: int, n_quadrics
 # ---------------------------------------------------------------------------
 
 def pack_scene(scene: Scene):
-    """Scene pytree -> SMEM-friendly packs (quads (Nq,20), spheres (Ns,21)
+    """Scene pytree -> scalar-table packs (quads (Nq,20), spheres (Ns,21)
     or None, quadrics (12,20) or None)."""
     q = scene.quads
     from bpt_tpu.core.vecmath import normalize as _n
@@ -2307,18 +1704,16 @@ def pack_scene(scene: Scene):
     return quads, sph, qdr
 
 
-def pack_mesh(scene: Scene, use_oct: bool = False):
-    """TriangleMesh -> kernel inputs (mesh_s (18,) f32, nodes, tris_dense)
+def pack_mesh(scene: Scene):
+    """TriangleMesh -> kernel inputs (mesh_s (18,) f32, nodes, tris)
     or None.  mesh_s = inv 4x4 row-major, mat_type, backface-cull flag
     (cull unless untextured TRANSPARENT,
-    GLTFModelPathTracing_FragmentShader.js:284-287).  ``use_oct`` selects
-    the (8*Np, 16) octant near-first node layouts (see
-    accel.cluster.OctDenseClusteredBVH) instead of the preorder table."""
+    GLTFModelPathTracing_FragmentShader.js:284-287)."""
     m = scene.mesh
     if m is None:
         return None
     if m.fz_nodes_f is None:
-        raise ValueError("mesh lacks the dense clustered pack (fz_*); "
+        raise ValueError("mesh lacks the BVH4 pack (fz_*); "
                          "rebuild it with scenes.gltf_scene.mesh_from_model")
     mt = m.mat_type.astype(jnp.float32)
     has_albedo = m.albedo is not None
@@ -2328,8 +1723,7 @@ def pack_mesh(scene: Scene, use_oct: bool = False):
     mesh_s = jnp.concatenate(
         [m.inv_matrix.reshape(16).astype(jnp.float32), mt[None], cull[None]]
     )
-    nodes = m.fz_nodes_oct if use_oct else m.fz_nodes_f
-    return mesh_s, nodes, m.fz_tris, m.fz_woop
+    return mesh_s, m.fz_nodes_f, m.fz_tris
 
 
 def pack_cornell_scene(scene: Scene):
@@ -2399,7 +1793,7 @@ def _env_nee_planes(scene, cfg, frame_counter, height, width):
     wavefront integrator (radiance.py:267-284) takes in-loop, so fused and
     wavefront keep float-level parity; the kernel consumes the same lc/lp
     draws for stream position and reads the resulting direction/pdf from
-    these planes (Mosaic has no per-lane gather for the CDF search).
+    these planes (the CDF search stays out of the kernel).
 
     Returns (4 * bounces, H, W): per bounce [dir.x, dir.y, dir.z,
     1/(pi*max(pdf, 1e-8))].
@@ -2425,403 +1819,93 @@ def _env_nee_planes(scene, cfg, frame_counter, height, width):
     return jax.lax.stop_gradient(jnp.stack(planes))
 
 
-@functools.partial(jax.jit, static_argnames=("cfg", "height", "width", "tile_rows", "tile_cols", "interpret", "param_grads", "fast_quads", "mesh_textured", "sub_rows", "mesh_oct"))
-def _pallas_forward(packs, cam, scalars, bn_planes, cfg, height, width, tile_rows, tile_cols, interpret=False, param_grads=False, fast_quads=False, mesh_textured=False, sub_rows=0, mesh_oct=False):
+BLOCK_LANES = 128
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def block_shape(height: int, width: int, lanes: int = BLOCK_LANES) -> tuple:
+    """Pixel block of one kernel program: power-of-two sides, ``lanes``
+    pixels (fewer only for images smaller than that), at most 8 rows tall —
+    a compact block keeps the shared BVH cursor's subtree union small, and
+    one lane per thread leaves each path its registers."""
+    rows = min(8, _next_pow2(height), lanes)
+    cols = min(lanes // rows, _next_pow2(width))
+    return rows, cols
+
+
+def use_interpreter(interpret: bool) -> bool:
+    """The one place the fused path picks its backend: the Triton kernel on
+    a GPU, the Pallas interpreter only when the caller asks for it."""
+    if interpret:
+        return True
+    backend = jax.default_backend()
+    if backend != "gpu":
+        raise RuntimeError(
+            f"the fused Pallas kernel compiles for the GPU through Triton, but "
+            f"the default backend is {backend!r}; pass interpret=True to run "
+            "it in the Pallas interpreter")
+    return False
+
+
+@functools.partial(jax.jit, static_argnames=("cfg", "height", "width", "img_height", "block", "interpret", "param_grads", "fast_quads", "mesh_textured"))
+def _pallas_forward(packs, cam, scalars, bn_planes, cfg, height, width, img_height, block, interpret=False, param_grads=False, fast_quads=False, mesh_textured=False):
+    """One fused pallas_call over ``height`` rows of an ``img_height`` x
+    ``width`` image (the first absolute row rides scalars[10]).  The image
+    is padded to whole blocks and every output plane cropped back, so any
+    size is traced."""
     quads, sph, qdr, mesh = packs
     n_quads = quads.shape[0]
     n_spheres = sph.shape[0] if sph is not None else 0
     n_quadrics = qdr.shape[0] if qdr is not None else 0
     n_obj = n_quads + n_spheres + n_quadrics
     has_mesh = mesh is not None
-    n_nodes_p = (mesh[1].shape[0] // (8 if mesh_oct else 1)) if has_mesh else 0
-    if has_mesh and tile_rows % 8:
-        raise ValueError(
-            "mesh scenes need tile_rows % 8 == 0 (the f32 VMEM row tiling "
-            "is (8, 128); tile heights must align to whole sublane tiles)"
-        )
-    has_woop = has_mesh and len(mesh) > 3 and mesh[3] is not None
-    if has_mesh:
-        # whole dense pack must fit VMEM alongside the path state (~16 MB/core)
-        mesh_bytes = (mesh[1].size + mesh[2].size
-                      + (mesh[3].size if has_woop else 0)) * 4
-        if mesh_bytes > 12 * 1024 * 1024:
-            raise ValueError(
-                f"mesh pack is {mesh_bytes / 1e6:.0f} MB — beyond the fused "
-                "kernel's VMEM budget (~12 MB for node+triangle tables); "
-                "use the wavefront path (its packet kernel streams per-tile)"
-            )
+    bh, bw = block
+    hp = -(-height // bh) * bh
+    wp = -(-width // bw) * bw
     n_out = 17 if cfg.env == "hdri" else 11
-    if mesh_textured:
-        n_out += 2 * cfg.bounces + 5  # per-bounce albedo UVs + emissive terminal
-    kernel = _make_kernel(cfg, n_quads, n_spheres, n_quadrics, tile_rows, tile_cols, width, height, param_grads, has_mesh=has_mesh, n_nodes_p=n_nodes_p, fast_quads=fast_quads, mesh_textured=mesh_textured, sub_rows=sub_rows, mesh_oct=mesh_oct, mesh_woop=has_woop)
-    grid = (height // tile_rows, width // tile_cols)
-    plane = jax.ShapeDtypeStruct((height, width), jnp.float32)
+    kernel = _make_kernel(cfg, n_quads, n_spheres, n_quadrics, bh, bw, width, img_height, param_grads, has_mesh=has_mesh, n_nodes=mesh[1].shape[0] if has_mesh else 0, fast_quads=fast_quads, mesh_textured=mesh_textured)
+    plane = jax.ShapeDtypeStruct((hp, wp), jnp.float32)
+    plane_spec = pl.BlockSpec((bh, bw), lambda i, j: (i, j))
     out_shape = [plane] * n_out
-    out_specs = [
-        pl.BlockSpec((tile_rows, tile_cols), lambda i, j: (i, j), memory_space=pltpu.VMEM)
-    ] * n_out
+    out_specs = [plane_spec] * n_out
+    if mesh_textured:
+        # per-bounce albedo UVs (one stacked output) + emissive terminal
+        out_shape.append(jax.ShapeDtypeStruct((2 * cfg.bounces, hp, wp), jnp.float32))
+        out_specs.append(pl.BlockSpec((2 * cfg.bounces, bh, bw), lambda i, j: (0, i, j)))
+        out_shape += [plane] * 5
+        out_specs += [plane_spec] * 5
     if param_grads:
         n_sg = n_obj if cfg.transparent_tint else 2 * n_obj
-        out_shape.append(jax.ShapeDtypeStruct((n_sg, height, width), jnp.float32))
-        out_specs.append(
-            pl.BlockSpec((n_sg, tile_rows, tile_cols), lambda i, j: (0, i, j), memory_space=pltpu.VMEM)
-        )
+        out_shape.append(jax.ShapeDtypeStruct((n_sg, hp, wp), jnp.float32))
+        out_specs.append(pl.BlockSpec((n_sg, bh, bw), lambda i, j: (0, i, j)))
+    # scene tables are whole-array refs in global memory, read by scalar loads
     inputs = [cam, scalars, quads]
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    in_specs = [smem, smem, smem]
     if n_spheres:
         inputs.append(sph)
-        in_specs.append(smem)
     if n_quadrics:
         inputs.append(qdr)
-        in_specs.append(smem)
     if has_mesh:
-        mesh_s, nodes_f, tris_d = mesh[:3]
-        inputs.extend([mesh_s, nodes_f, tris_d])
-        in_specs.extend([
-            smem,
-            pl.BlockSpec(nodes_f.shape, lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(tris_d.shape, lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        ])
-        if has_woop:
-            inputs.append(mesh[3])
-            in_specs.append(
-                pl.BlockSpec(mesh[3].shape, lambda i, j: (0, 0), memory_space=pltpu.VMEM)
-            )
-    inputs.append(bn_planes)
+        inputs.extend(mesh)
+    in_specs = [pl.BlockSpec()] * len(inputs)
     # 4 blue-noise planes, + 4 env-NEE sample planes per bounce when
     # cfg.nee == "env" (see _make_kernel)
-    in_specs.append(
-        pl.BlockSpec((bn_planes.shape[0], tile_rows, tile_cols),
-                     lambda i, j: (0, i, j), memory_space=pltpu.VMEM)
-    )
-    grid_spec = pl.GridSpec(grid=grid, in_specs=in_specs, out_specs=out_specs)
-    return pl.pallas_call(
+    inputs.append(jnp.pad(bn_planes, ((0, 0), (0, hp - height), (0, wp - width))))
+    in_specs.append(pl.BlockSpec((bn_planes.shape[0], bh, bw), lambda i, j: (0, i, j)))
+    outs = pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        interpret=interpret,
-    )(*inputs)
-
-
-# ---------------------------------------------------------------------------
-# staged (sorted-wavefront) mode: per-bounce-range phases + ray reordering
-# ---------------------------------------------------------------------------
-
-@functools.partial(jax.jit, static_argnames=(
-    "cfg", "img_height", "img_width", "tile_rows", "tile_cols", "interpret",
-    "fast_quads", "mesh_textured", "sub_rows", "bounce_lo", "bounce_hi",
-    "mesh_stream", "mesh_oct", "param_grads"))
-def _pallas_forward_staged(packs, cam, scalars, bn_planes, state, pix, cfg,
-                           img_height, img_width, tile_rows, tile_cols,
-                           interpret=False, fast_quads=False,
-                           mesh_textured=False, sub_rows=0, bounce_lo=0,
-                           bounce_hi=None, mesh_stream=False, mesh_oct=False,
-                           param_grads=False):
-    """One staged phase: bounces [bounce_lo, bounce_hi) with per-lane state
-    riding an (S, R, W) plane stack.  The lane grid (R, W) is decoupled from
-    the image: R = frames * img_height when several progressive frames fuse
-    into one lane pool.  The ray-gen phase takes ``pix`` (4, R, W):
-    [px, py, frame, fslot] and state=None; later phases the reverse.  With
-    ``mesh_stream`` the triangle table stays in HBM and leaves are
-    double-buffer-DMA'd (reference-capacity meshes on the fused path)."""
-    quads, sph, qdr, mesh = packs
-    n_quads = quads.shape[0]
-    n_spheres = sph.shape[0] if sph is not None else 0
-    n_quadrics = qdr.shape[0] if qdr is not None else 0
-    has_mesh = mesh is not None
-    n_nodes_p = (mesh[1].shape[0] // (8 if mesh_oct else 1)) if has_mesh else 0
-    n_obj = n_quads + n_spheres + n_quadrics
-    n_sg = (n_obj if cfg.transparent_tint else 2 * n_obj) if param_grads else 0
-    layout = _state_layout(cfg, mesh_textured, n_sg)
-    S = len(layout)
-    rows, wcols = (pix.shape[1:] if state is None else state.shape[1:])
-    # woop leaf-test rows: VMEM-resident normally; with mesh_stream both
-    # the woop and dense tables stay in HBM (8-woop-row leaf windows +
-    # blocking interp-row fetches)
-    has_woop = has_mesh and len(mesh) > 3 and mesh[3] is not None
-    kernel = _make_kernel(
-        cfg, n_quads, n_spheres, n_quadrics, tile_rows, tile_cols, img_width,
-        img_height, param_grads, has_mesh=has_mesh, n_nodes_p=n_nodes_p,
-        fast_quads=fast_quads, mesh_textured=mesh_textured, sub_rows=sub_rows,
-        bounce_lo=bounce_lo, bounce_hi=bounce_hi, staged=True,
-        mesh_stream=mesh_stream, mesh_oct=mesh_oct, mesh_woop=has_woop,
-    )
-    # a non-divisible lane pool would silently leave trailing rows untraced
-    # AND feed their uninitialized (px, py, fslot) identity planes into the
-    # final group-8 scatter — garbage indices overwriting valid pixels
-    # (advisor r4 finding); fail loudly instead
-    if rows % tile_rows or wcols % tile_cols:
-        raise ValueError(
-            f"staged lane pool ({rows}, {wcols}) is not divisible by the "
-            f"({tile_rows}, {tile_cols}) tile — pick tile sizes dividing "
-            "frames*height and min(width, 256)"
-        )
-    grid = (rows // tile_rows, wcols // tile_cols)
-    out_shape = [jax.ShapeDtypeStruct((S, rows, wcols), jnp.float32)]
-    out_specs = [pl.BlockSpec((S, tile_rows, tile_cols), lambda i, j: (0, i, j),
-                              memory_space=pltpu.VMEM)]
-    inputs = [cam, scalars, quads]
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    in_specs = [smem, smem, smem]
-    if n_spheres:
-        inputs.append(sph)
-        in_specs.append(smem)
-    if n_quadrics:
-        inputs.append(qdr)
-        in_specs.append(smem)
-    if has_mesh:
-        mesh_s, nodes_f, tris_d = mesh[:3]
-        inputs.extend([mesh_s, nodes_f, tris_d])
-        in_specs.extend([
-            smem,
-            pl.BlockSpec(nodes_f.shape, lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pl.ANY) if mesh_stream else
-            pl.BlockSpec(tris_d.shape, lambda i, j: (0, 0), memory_space=pltpu.VMEM),
-        ])
-        if has_woop:
-            inputs.append(mesh[3])
-            in_specs.append(
-                pl.BlockSpec(memory_space=pl.ANY) if mesh_stream else
-                pl.BlockSpec(mesh[3].shape, lambda i, j: (0, 0), memory_space=pltpu.VMEM)
-            )
-    inputs.append(bn_planes)
-    in_specs.append(
-        pl.BlockSpec((bn_planes.shape[0], tile_rows, tile_cols),
-                     lambda i, j: (0, i, j), memory_space=pltpu.VMEM)
-    )
-    if state is not None:
-        inputs.append(state)
-        in_specs.append(
-            pl.BlockSpec((S, tile_rows, tile_cols), lambda i, j: (0, i, j),
-                         memory_space=pltpu.VMEM)
-        )
-    else:
-        inputs.append(pix)
-        in_specs.append(
-            pl.BlockSpec((4, tile_rows, tile_cols), lambda i, j: (0, i, j),
-                         memory_space=pltpu.VMEM)
-        )
-    scratch_shapes = []
-    if mesh_stream:
-        if has_woop:
-            scratch_shapes = [
-                pltpu.VMEM((2, 8, 128), jnp.float32),   # woop leaf windows
-                pltpu.SemaphoreType.DMA((2,)),
-                pltpu.VMEM((2, 128), jnp.float32),      # interp row pair
-                pltpu.SemaphoreType.DMA,
-            ]
-        else:
-            scratch_shapes = [
-                pltpu.VMEM((2, 16, 128), jnp.float32),
-                pltpu.SemaphoreType.DMA((2,)),
-            ]
-    (out,) = pl.pallas_call(
-        kernel,
-        grid=grid,
+        grid=(hp // bh, wp // bw),
         in_specs=in_specs,
         out_specs=out_specs,
         out_shape=out_shape,
-        scratch_shapes=scratch_shapes,
         interpret=interpret,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=max(1, bh * bw // 32)),
+        name="bpt_megakernel",
     )(*inputs)
-    return out
-
-
-def _sort_key(state, layout, mode="oct-morton"):
-    """Per-lane reorder key: dead lanes last (compaction), live lanes
-    clustered so each (sub_rows, cols) packet's BVH subtree union stays
-    tight under secondary-bounce divergence.  The fixed-schedule RNG is
-    keyed by absolute pixel id (carried in the state), so reordering cannot
-    perturb any draw.
-
-    Key modes (most-significant field first):
-      'oct-morton'  — direction octant, then 4-bit/axis Morton of origin
-                      (direction-coherent packets; measured best on the
-                      divergent-mesh family)
-      'morton-oct'  — origin Morton, then octant
-      'dir-morton'  — 2-bit/axis quantized direction, then origin Morton
-    """
-
-    def P(name):
-        return state[layout.index(name)]
-
-    alive = P("alive") > 0.5
-    big = jnp.float32(1e9)
-    ro = [P("rox"), P("roy"), P("roz")]
-    rd = [P("rdx"), P("rdy"), P("rdz")]
-    qs = []
-    for v in ro:
-        lo = jnp.min(jnp.where(alive, v, big))
-        hi = jnp.max(jnp.where(alive, v, -big))
-        qs.append(jnp.clip(
-            (v - lo) / jnp.maximum(hi - lo, 1e-6) * 64.0, 0.0, 63.0
-        ).astype(jnp.int32))
-
-    def spread(x):  # 6-bit Morton spread: bit k -> bit 3k
-        out = x & 1
-        for k in range(1, 6):
-            out = out | (((x >> k) & 1) << (3 * k))
-        return out
-
-    # 18-bit Morton: fine enough that a multi-frame pool's 2048-lane
-    # packets sit well inside one cell's population
-    morton = (spread(qs[0]) << 2) | (spread(qs[1]) << 1) | spread(qs[2])
-    octant = (
-        ((rd[0] > 0).astype(jnp.int32) << 2)
-        | ((rd[1] > 0).astype(jnp.int32) << 1)
-        | (rd[2] > 0).astype(jnp.int32)
-    )
-    if mode == "morton-oct":
-        key = (morton << 3) | octant
-    elif mode == "oct-morton":
-        key = (octant << 18) | morton
-    elif mode == "dir-morton":
-        qd = [jnp.clip((v * 0.5 + 0.5) * 4.0, 0.0, 3.0).astype(jnp.int32)
-              for v in rd]
-        dir6 = (qd[0] << 4) | (qd[1] << 2) | qd[2]
-        key = (dir6 << 18) | morton
-    else:
-        raise ValueError(mode)
-    return jnp.where(alive, key, jnp.int32(1) << 30)
-
-
-def _trace_staged(packs, cam, scalars, bn_stack, frames, cfg, height, width,
-                  tile_rows, tile_cols, interpret, fast_quads, mesh_textured,
-                  sub_rows, splits, mesh_stream, reorder_key="oct-morton",
-                  sub_rows_primary=None, mesh_oct=False, img_height=None,
-                  row_offset=0, param_grads=False):
-    """Staged driver over a MULTI-FRAME lane pool.
-
-    ``frames``: (F,) frame counters; ``bn_stack``: (C, F, H, W) per-frame
-    draw planes (blue noise [+ env-NEE samples]).  All F progressive frames
-    fuse into one lane pool of F*H*W rays: the pool is laid out in
-    interleaved 8-row blocks (block-major, frame-minor) so a whole-tile
-    primary packet bundles the F frames' near-identical camera rays, and
-    between bounces the WHOLE pool sorts together — an F× larger sort pool
-    cuts each packet's key span (and so its BVH footprint) by ~F on the
-    divergent bounces.  Phase 0 runs in layout order; later phases run on
-    sorted lanes; the final state scatters straight to (F, H, W) via the
-    per-lane (fslot, py, px) identity.
-
-    Returns the monolithic kernel's `outs` tuple with a leading F axis, so
-    the composition tail (deferred equirect / PBR texel fetches) is shared
-    verbatim."""
-    quads_p, sph_p, qdr_p, _mesh_p = packs
-    n_obj = (quads_p.shape[0]
-             + (sph_p.shape[0] if sph_p is not None else 0)
-             + (qdr_p.shape[0] if qdr_p is not None else 0))
-    n_sg = (n_obj if cfg.transparent_tint else 2 * n_obj) if param_grads else 0
-    layout = _state_layout(cfg, mesh_textured, n_sg)
-    S = len(layout)
-    F = frames.shape[0]
-    M = F * height * width
-    lane_w = min(width, 256)
-    rows_total = M // lane_w
-    assert height % 8 == 0 and M % lane_w == 0
-    nb_c = bn_stack.shape[0]
-
-    # Lane layout for phase 0 (the driver owns the lane↔pixel map; the
-    # kernel reads identity from the pix planes).  Primary packets share a
-    # BVH cursor per (sub_rows, lane_w) row group, so lanes are ordered in
-    # SQUARE-ISH 32x64 pixel blocks (2048 lanes = one (8, 256) sub-packet)
-    # rather than full-width strips — a strip spans the whole silhouette
-    # and its subtree union approaches the whole tree, a block covers ~2%
-    # of it.  Frames interleave block-major so a whole-tile cursor bundles
-    # the F frames' near-identical rays of one block.
-    bh, bw = 32, 64
-    blocked = (height % bh == 0) and (width % bw == 0) and lane_w == 256
-
-    def to_lanes(x):
-        c = x.shape[0]
-        if blocked:
-            # (C,F,H,W) -> blocks of (bh, bw), block-major, frame-minor
-            x = x.reshape(c, F, height // bh, bh, width // bw, bw)
-            x = x.transpose(0, 2, 4, 1, 3, 5)  # (c, nbh, nbw, F, bh, bw)
-            return x.reshape(c, rows_total, lane_w)
-        # fallback: 8-row strips, block-major frame-minor
-        x = x.reshape(c, F, height // 8, 8, width)
-        x = x.transpose(0, 2, 1, 3, 4)
-        return x.reshape(c, rows_total, lane_w)
-
-    px0 = jax.lax.broadcasted_iota(jnp.float32, (height, width), 1)
-    # absolute image rows (row_offset != 0 under row-sharded shard_map —
-    # the RNG and NDC are keyed by absolute pixel coordinates)
-    py0 = jax.lax.broadcasted_iota(jnp.float32, (height, width), 0) + row_offset
-    ones_f = jnp.ones((F, height, width), jnp.float32)
-    pix = jnp.stack([
-        px0[None] * ones_f,
-        py0[None] * ones_f,
-        frames.astype(jnp.float32)[:, None, None] * jnp.ones((height, width), jnp.float32),
-        jnp.arange(F, dtype=jnp.float32)[:, None, None] * jnp.ones((height, width), jnp.float32),
-    ])  # (4, F, H, W)
-    pix = to_lanes(pix)
-    nb = to_lanes(bn_stack)
-
-    # clamp BEFORE capturing kw so every phase's pallas grid sees the
-    # clamped tile (advisor r4: a post-capture clamp only reached phase 0's
-    # sub_rows default)
-    tile_rows = min(tile_rows, rows_total)
-    kw = dict(cfg=cfg, img_height=img_height or height, img_width=width,
-              tile_rows=tile_rows, tile_cols=tile_cols, interpret=interpret,
-              fast_quads=fast_quads, mesh_textured=mesh_textured,
-              mesh_stream=mesh_stream, mesh_oct=mesh_oct,
-              param_grads=param_grads)
-    bounds = [0] + list(splits) + [cfg.bounces]
-    # primary packets are camera-coherent (and bundle F frames of the same
-    # pixel block): default to one whole-tile shared cursor
-    sr0 = tile_rows if sub_rows_primary is None else sub_rows_primary
-    state = _pallas_forward_staged(packs, cam, scalars, nb, None, pix,
-                                   bounce_lo=0, bounce_hi=bounds[1],
-                                   sub_rows=sr0, **kw)
-    # Permutations move GROUPS of 8 consecutive-x lanes, never single lanes:
-    # a per-lane row gather over the (M, S+C) bundle costs ~15 cycles/row on
-    # TPU (~16 ms at 1M lanes), group-8 rows cost 1/8th of that.  Groups of
-    # 8 adjacent pixels are maximally coherent anyway, and because every
-    # layout above emits aligned 8-pixel runs, groups survive all sorts
-    # intact — including the final scatter home.
-    G = 8
-    C_all = S + nb_c
-    for lo, hi in zip(bounds[1:-1], bounds[2:]):
-        key = _sort_key(state, layout, reorder_key).reshape(M // G, G)
-        gperm = jnp.argsort(jnp.min(key, axis=1))
-        bundle = jnp.concatenate([state, nb], axis=0).reshape(C_all, M).T
-        bundle = jnp.take(bundle.reshape(M // G, G * C_all), gperm, axis=0)
-        bundle = bundle.reshape(M, C_all).T
-        state = bundle[:S].reshape(S, rows_total, lane_w)
-        nb = bundle[S:].reshape(nb_c, rows_total, lane_w)
-        state = _pallas_forward_staged(packs, cam, scalars, nb, state, None,
-                                       bounce_lo=lo, bounce_hi=hi,
-                                       sub_rows=sub_rows, **kw)
-    # scatter the final state straight to image order via the per-lane
-    # (frame-slot, pixel) identity — groups land as 8-pixel runs
-    fslot = state[layout.index("fslot")].astype(jnp.int32)
-    py = state[layout.index("py")].astype(jnp.int32)
-    px = state[layout.index("px")].astype(jnp.int32)
-    flat = ((fslot * height + (py - row_offset)) * width + px).reshape(M)
-    rows = state.reshape(S, M).T.reshape(M // G, G * S)
-    gdst = flat.reshape(M // G, G)[:, 0] // G
-    rows = jnp.zeros_like(rows).at[gdst].set(rows)
-    state = rows.reshape(M, S).T.reshape(S, F, height, width)
-
-    def P(name):
-        return state[layout.index(name)]
-
-    outs = [jnp.maximum(P("acc_r"), 0.0), jnp.maximum(P("acc_g"), 0.0),
-            jnp.maximum(P("acc_b"), 0.0),
-            P("obj_nx"), P("obj_ny"), P("obj_nz"),
-            P("obj_cr"), P("obj_cg"), P("obj_cb"), P("obj_id"), P("sharp")]
-    if cfg.env == "hdri":
-        outs += [P("mw_r"), P("mw_g"), P("mw_b"),
-                 P("md_x"), P("md_y"), P("md_z")]
-    if mesh_textured:
-        for b in range(cfg.bounces):
-            outs += [P(f"alb_u{b}"), P(f"alb_v{b}")]
-        outs += [P("em_r"), P("em_g"), P("em_b"), P("em_u"), P("em_v")]
-    if param_grads:
-        # (n_sg, F, H, W) — monolithic sgrad with a leading F axis folded in
-        outs.append(jnp.stack([P(f"sg{j}") for j in range(n_sg)]))
-    return tuple(outs)
+    return [o[..., :height, :width] for o in outs]
 
 
 # ---------------------------------------------------------------------------
@@ -2840,8 +1924,8 @@ def _zeros_ct(x):
 
 
 @functools.lru_cache(maxsize=64)
-def _prb_fn(cfg: IntegratorConfig, height: int, width: int, tile_rows: int, tile_cols: int, interpret: bool, fast_quads: bool = False, mesh_textured: bool = False, sub_rows: int = 0, mesh_oct: bool = False):
-    """Returns radiance(quads, sph, cam, scalars, bn) differentiable w.r.t.
+def _prb_fn(cfg: IntegratorConfig, height: int, width: int, img_height: int, block: tuple, interpret: bool, fast_quads: bool = False, mesh_textured: bool = False):
+    """Returns radiance(packs, cam, scalars, bn) differentiable w.r.t.
     the packed material-color columns (quads[:,15:18], sph[:,16:19]) — the
     emission/albedo parameters of the Cornell-family inverse problem
     (BASELINE.json config #1/#5 shape).  With env "hdri", the deferred
@@ -2850,15 +1934,14 @@ def _prb_fn(cfg: IntegratorConfig, height: int, width: int, tile_rows: int, tile
     adds exact HDR/exposure gradients by plain AD).  Other leaves get zero
     cotangents; use the jnp integrator for camera/geometry gradients."""
 
-    kw = dict(cfg=cfg, height=height, width=width, tile_rows=tile_rows,
-              tile_cols=tile_cols, interpret=interpret, fast_quads=fast_quads,
-              mesh_textured=mesh_textured, sub_rows=sub_rows,
-              mesh_oct=mesh_oct)
+    kw = dict(cfg=cfg, height=height, width=width, img_height=img_height,
+              block=block, interpret=interpret, fast_quads=fast_quads,
+              mesh_textured=mesh_textured)
     env_hdri = cfg.env == "hdri"
     # index of the emissive-terminal throughput planes among the outputs
-    em_idx = (17 if env_hdri else 11) + 2 * cfg.bounces if mesh_textured else None
-    # blue-noise planes + precomputed env-NEE sample planes (nee == "env")
-    n_draw = 4 + (4 * cfg.bounces if cfg.nee == "env" else 0)
+    em_idx = (17 if env_hdri else 11) + 1 if mesh_textured else None
+    # full-precision reductions: a TF32 contraction keeps ~3 digits
+    hi = jax.lax.Precision.HIGHEST
 
     @jax.custom_vjp
     def f(packs, cam, scalars, bn_planes):
@@ -2880,13 +1963,14 @@ def _prb_fn(cfg: IntegratorConfig, height: int, width: int, tile_rows: int, tile
             parts.append(qdr[:, 16:19])
         parts.append(quads[:, 15:18])
         colors = jnp.concatenate(parts, axis=0)
-        res = (outs[0], outs[1], outs[2], outs[9], mw, emw, sgrad, colors,
-               jax.tree.map(_zeros_ct, packs, is_leaf=lambda x: x is None))
+        zeros = jax.tree.map(_zeros_ct, (packs, cam, scalars, bn_planes),
+                             is_leaf=lambda x: x is None)
+        res = (outs[0], outs[1], outs[2], outs[9], mw, emw, sgrad, colors, zeros)
         return tuple(outs), res
 
     def f_bwd(res, cot):
-        cr, cg, cb, oid_plane, mw, emw, sgrad, colors, zpacks = res
-        zq, zs, zqd, _zmesh = zpacks
+        cr, cg, cb, oid_plane, mw, emw, sgrad, colors, zeros = res
+        (zq, zs, zqd, zmesh), zcam, zscalars, zbn = zeros
         n_s = zs.shape[0] if zs is not None else 0
         n_qd = zqd.shape[0] if zqd is not None else 0
         n_q = zq.shape[0]
@@ -2904,121 +1988,30 @@ def _prb_fn(cfg: IntegratorConfig, height: int, width: int, tile_rows: int, tile
         inv_c = 1.0 / jnp.maximum(colors, 1e-8)  # (n_obj, 3)
         # ∂log f/∂c = 1/c per linear hit; + 0.01·t/c in the Beer clip's
         # linear region (kernel planes carry the counts / Σ0.01·t).
-        gcol = jnp.einsum("chw,jhw->jc", weighted, sgrad[:n_obj]) * inv_c
+        gcol = jnp.einsum("chw,jhw->jc", weighted, sgrad[:n_obj], precision=hi) * inv_c
         if sgrad.shape[0] > n_obj:  # Beer-Lambert planes (absorption mode)
             beer_gate = ((colors > 0.01) & (colors < 0.99)).astype(jnp.float32)
             gcol = gcol + jnp.einsum(
-                "chw,jhw->jc", weighted, sgrad[n_obj:]
+                "chw,jhw->jc", weighted, sgrad[n_obj:], precision=hi
             ) * beer_gate * inv_c
         # first-hit object_color record: d record_c / d color[j,c] = [oid == j]
         adj_oc = jnp.stack(cot[6:9])
         onehot = (oid_plane[None] == jnp.arange(n_obj, dtype=jnp.float32)[:, None, None])
-        gcol = gcol + jnp.einsum("chw,jhw->jc", adj_oc, onehot.astype(jnp.float32))
+        gcol = gcol + jnp.einsum("chw,jhw->jc", adj_oc, onehot.astype(jnp.float32),
+                                 precision=hi)
         # object-id order: spheres, quadrics, quads (intersect.py numbering)
         gq = zq.at[:, 15:18].set(gcol[n_s + n_qd:])
         gs = zs.at[:, 16:19].set(gcol[:n_s]) if zs is not None else None
         gqd = zqd.at[:, 16:19].set(gcol[n_s:n_s + n_qd]) if zqd is not None else None
-        return ((gq, gs, gqd, _zmesh), jnp.zeros(16, jnp.float32),
-                jnp.zeros(10, jnp.float32), jnp.zeros((n_draw, height, width), jnp.float32))
+        return ((gq, gs, gqd, zmesh), zcam, zscalars, zbn)
 
     f.defvjp(f_fwd, f_bwd)
     return f
 
 
-@functools.lru_cache(maxsize=64)
-def _prb_staged_fn(cfg: IntegratorConfig, height: int, width: int,
-                   tile_rows: int, tile_cols: int, interpret: bool,
-                   fast_quads: bool, mesh_textured: bool, sub_rows: int,
-                   splits: tuple, mesh_stream: bool, reorder_key: str,
-                   sub_rows_primary, mesh_oct: bool, img_height: int):
-    """Path-replay VJP for the STAGED (sorted-wavefront) path — the same
-    ∂log-throughput planes as _prb_fn, but accumulated as per-lane state
-    carries (`sg{j}` in _state_layout) so they ride the group-8 permutations
-    and scatter home with the lane identity.  f(packs, cam, scalars,
-    bn_stack, frames, row_offset) returns _trace_staged's outs tuple
-    (leading F axis); row_offset is DYNAMIC (it is an axis_index under a
-    row-sharded shard_map); gradients flow to the packed material-color
-    columns exactly as in the monolithic VJP (verified bit-equal by
-    tests/test_fused_gradients.py)."""
-    env_hdri = cfg.env == "hdri"
-    em_idx = (17 if env_hdri else 11) + 2 * cfg.bounces if mesh_textured else None
-    n_draw = 4 + (4 * cfg.bounces if cfg.nee == "env" else 0)
-
-    kw = dict(cfg=cfg, height=height, width=width, tile_rows=tile_rows,
-              tile_cols=tile_cols, interpret=interpret, fast_quads=fast_quads,
-              mesh_textured=mesh_textured, sub_rows=sub_rows,
-              splits=splits, mesh_stream=mesh_stream, reorder_key=reorder_key,
-              sub_rows_primary=sub_rows_primary, mesh_oct=mesh_oct,
-              img_height=img_height)
-
-    @jax.custom_vjp
-    def f(packs, cam, scalars, bn_stack, frames, row_offset):
-        return tuple(_trace_staged(packs, cam, scalars, bn_stack, frames,
-                                   row_offset=row_offset, **kw))
-
-    def f_fwd(packs, cam, scalars, bn_stack, frames, row_offset):
-        *outs, sgrad = _trace_staged(packs, cam, scalars, bn_stack, frames,
-                                     row_offset=row_offset,
-                                     param_grads=True, **kw)
-        mw = (outs[11], outs[12], outs[13]) if env_hdri else None
-        emw = (outs[em_idx], outs[em_idx + 1], outs[em_idx + 2]) if em_idx else None
-        quads, sph, qdr, _mesh = packs
-        parts = []
-        if sph is not None:
-            parts.append(sph[:, 16:19])
-        if qdr is not None:
-            parts.append(qdr[:, 16:19])
-        parts.append(quads[:, 15:18])
-        colors = jnp.concatenate(parts, axis=0)
-        res = (outs[0], outs[1], outs[2], outs[9], mw, emw, sgrad, colors,
-               jax.tree.map(_zeros_ct, packs, is_leaf=lambda x: x is None))
-        return tuple(outs), res
-
-    def f_bwd(res, cot):
-        cr, cg, cb, oid_plane, mw, emw, sgrad, colors, zpacks = res
-        F = sgrad.shape[1]
-        zq, zs, zqd, _zmesh = zpacks
-        n_s = zs.shape[0] if zs is not None else 0
-        n_qd = zqd.shape[0] if zqd is not None else 0
-        n_q = zq.shape[0]
-        n_obj = n_q + n_s + n_qd
-        adj_col = jnp.stack(cot[0:3])  # (3, F, H, W)
-        color = jnp.stack([cr, cg, cb])
-        weighted = adj_col * color
-        if env_hdri:
-            weighted = weighted + jnp.stack(cot[11:14]) * jnp.stack(mw)
-        if emw is not None:
-            weighted = weighted + jnp.stack(cot[em_idx:em_idx + 3]) * jnp.stack(emw)
-        inv_c = 1.0 / jnp.maximum(colors, 1e-8)
-        gcol = jnp.einsum("cfhw,jfhw->jc", weighted, sgrad[:n_obj]) * inv_c
-        if sgrad.shape[0] > n_obj:
-            beer_gate = ((colors > 0.01) & (colors < 0.99)).astype(jnp.float32)
-            gcol = gcol + jnp.einsum(
-                "cfhw,jfhw->jc", weighted, sgrad[n_obj:]
-            ) * beer_gate * inv_c
-        adj_oc = jnp.stack(cot[6:9])
-        onehot = (oid_plane[None]
-                  == jnp.arange(n_obj, dtype=jnp.float32)[:, None, None, None])
-        gcol = gcol + jnp.einsum("cfhw,jfhw->jc", adj_oc, onehot.astype(jnp.float32))
-        gq = zq.at[:, 15:18].set(gcol[n_s + n_qd:])
-        gs = zs.at[:, 16:19].set(gcol[:n_s]) if zs is not None else None
-        gqd = zqd.at[:, 16:19].set(gcol[n_s:n_s + n_qd]) if zqd is not None else None
-        import numpy as _np
-
-        return ((gq, gs, gqd, _zmesh), jnp.zeros(16, jnp.float32),
-                jnp.zeros(10, jnp.float32),
-                jnp.zeros((n_draw, F, height, width), jnp.float32),
-                jnp.zeros((F,), jnp.float32),
-                _np.zeros((), jax.dtypes.float0))
-
-    f.defvjp(f_fwd, f_bwd)
-    return f
-
-
-def _setup_inputs(scene: Scene, camera, cfg: IntegratorConfig, width, height,
-                  frame_counter, want_oct: bool = False):
-    """Shared packing/validation for the fused entry points: (packs, cam,
-    scalars)."""
+def _setup_inputs(scene: Scene, camera, cfg: IntegratorConfig, width, img_height,
+                  frame_counter, row_offset):
+    """Packing/validation for the fused entry point: (packs, cam, scalars)."""
     assert cfg.env in ("none", "sky", "hdri")
     assert cfg.nee in ("quad", "sun", "env")
     assert (cfg.env == "none") == (cfg.nee == "quad")
@@ -3030,18 +2023,8 @@ def _setup_inputs(scene: Scene, camera, cfg: IntegratorConfig, width, height,
         assert scene.mesh is not None and scene.mesh.albedo is not None, (
             "metal_roughness_lobe needs a textured mesh (per-lane roughness)"
         )
-    # octant near-first layouts: 8x the node table — staged-path only
-    # (the monolithic kernel's ~24 live output buffers leave no VMEM for
-    # the replicated table), and only when small enough to leave room for
-    # the rest of the kernel
-    use_oct = (
-        want_oct
-        and scene.mesh is not None
-        and scene.mesh.fz_nodes_oct is not None
-        and scene.mesh.fz_nodes_oct.size * 4 <= 8 * 1024 * 1024
-    )
-    packs = pack_scene(scene) + (pack_mesh(scene, use_oct),)
-    cam = pack_camera(camera, width, height)
+    packs = pack_scene(scene) + (pack_mesh(scene),)
+    cam = pack_camera(camera, width, img_height)
     shape_k = (
         jnp.asarray(scene.quadrics.shape_k, jnp.float32)
         if scene.quadrics is not None
@@ -3054,8 +2037,8 @@ def _setup_inputs(scene: Scene, camera, cfg: IntegratorConfig, width, height,
         sun = jnp.asarray([0.0, 1.0, 0.0], jnp.float32)
         sun_power = jnp.asarray(1.0, jnp.float32)
     if cfg.env == "sky":
-        # Scalar sky terms (pure functions of the sun direction) precomputed
-        # host-side: Mosaic has no acos lowering for SunIntensity's arccos.
+        # Scalar sky terms (pure functions of the sun direction) computed
+        # once outside the kernel instead of in every lane.
         from bpt_tpu import sky as _sky
 
         sun_e = _sky.sun_intensity(sun[1])
@@ -3064,6 +2047,12 @@ def _setup_inputs(scene: Scene, camera, cfg: IntegratorConfig, width, height,
         sky_blend = jnp.clip((1.0 - sun[1]) ** 5, 0.0, 1.0)
     else:
         sun_e = sky_gamma = sky_blend = jnp.asarray(0.0, jnp.float32)
+    # ONB about the sun (cross-trick, PathTracingCommon.js:527-528)
+    s_up = jnp.abs(sun[1]) < 0.9
+    helper = jnp.where(s_up, jnp.asarray([0.0, 1.0, 0.0]), jnp.asarray([1.0, 0.0, 0.0]))
+    su = jnp.cross(helper, sun)
+    su = su / jnp.sqrt(jnp.maximum(jnp.sum(su * su), 1e-20))
+    sv = jnp.cross(sun, su)
     scalars = jnp.stack(
         [
             jnp.asarray(frame_counter, jnp.float32),
@@ -3076,111 +2065,12 @@ def _setup_inputs(scene: Scene, camera, cfg: IntegratorConfig, width, height,
             jnp.asarray(sun_e, jnp.float32),
             jnp.asarray(sky_gamma, jnp.float32),
             jnp.asarray(sky_blend, jnp.float32),
+            jnp.asarray(row_offset, jnp.float32),
+            *su,
+            *sv,
         ]
     )
-    return packs, cam, scalars, use_oct
-
-
-def trace_frames_pallas(
-    scene: Scene,
-    camera,
-    cfg: IntegratorConfig,
-    width: int,
-    height: int,
-    frame_counters,
-    rand_vec2s,
-    blue_noise,
-    tile_rows: int = 32,
-    tile_cols: int = 256,
-    interpret: bool = False,
-    mesh_sub_rows: int | None = None,
-    fast_quads: bool | None = None,
-    reorder_splits: tuple | None = None,
-    reorder_key: str = "oct-morton",
-    full_height: int | None = None,
-    row_offset=0,
-    mesh_stream: bool | None = None,
-    differentiable: bool = False,
-):
-    """Fused MULTI-FRAME render on the staged sorted-wavefront path.
-
-    Traces F progressive frames in ONE lane pool of F*H*W rays (see
-    _trace_staged): primary packets bundle the F frames' near-identical
-    camera rays under one shared BVH cursor, and the between-bounce sort
-    sees an F× larger pool, so divergent-bounce packets stay F× tighter —
-    the multi-sample generalization of ray reordering, and the natural
-    shape for progressive accumulation (the renderer batches frames per
-    dispatch anyway).
-
-    frame_counters: (F,) floats; rand_vec2s: (F, 2) per-frame blue-noise
-    offsets.  Returns a RadianceResult whose leaves have a leading F axis —
-    numerically identical (lane-for-lane) to F single-frame
-    trace_image_pallas calls.
-    """
-    frame_counters = jnp.asarray(frame_counters, jnp.float32)
-    rand_vec2s = jnp.asarray(rand_vec2s, jnp.float32)
-    F = int(frame_counters.shape[0])
-    h_img = full_height if full_height is not None else height
-    packs, cam, scalars, use_oct = _setup_inputs(
-        scene, camera, cfg, width, h_img, frame_counters[0], want_oct=True
-    )
-    bn = jnp.asarray(blue_noise)
-    stacks = []
-    for f in range(F):
-        # draw planes are built for the FULL image and row-sliced, so a
-        # row-sharded shard (row_offset != 0) consumes identical draws
-        planes = _blue_noise_planes(bn, h_img, width, rand_vec2s[f])
-        if cfg.nee == "env":
-            planes = jnp.concatenate(
-                [planes,
-                 _env_nee_planes(scene, cfg, frame_counters[f], h_img, width)],
-                axis=0,
-            )
-        planes = jax.lax.dynamic_slice_in_dim(planes, row_offset, height, axis=1)
-        stacks.append(planes)
-    bn_stack = jnp.stack(stacks, axis=1)  # (C, F, H, W)
-    if scene.mesh is not None:
-        # mesh scenes carry BVH tables + the (S, tile, 256) state stacks in
-        # VMEM: 16-row tiles leave headroom (32-row tiles OOM at ~17 MB with
-        # the octant node layouts) and measure FASTER on the divergent
-        # meshes (helmet 7.2 vs 6.4 Mrays/s)
-        tile_rows = min(tile_rows, 16)
-    tile_rows = min(tile_rows, F * height)
-    tile_cols = min(tile_cols, width)
-    if fast_quads is None:
-        fast_quads = _all_parallelograms(scene.quads)
-    mesh_textured = scene.mesh is not None and scene.mesh.albedo is not None
-    sub_rows = 8 if (scene.mesh is not None and scene.mesh.fz_tris is not None
-                     and int(scene.mesh.fz_tris.shape[0]) > 2048) else 0
-    if mesh_sub_rows is not None:
-        sub_rows = mesh_sub_rows
-    splits = (tuple(reorder_splits) if reorder_splits is not None
-              else tuple(range(1, cfg.bounces)))
-    if mesh_stream is None:
-        mesh_stream = False
-        if scene.mesh is not None:
-            mesh_bytes = (packs[3][1].size + packs[3][2].size
-                          + (packs[3][3].size if packs[3][3] is not None else 0)) * 4
-            mesh_stream = mesh_bytes > 12 * 1024 * 1024
-    if differentiable:
-        # staged path-replay VJP: material-color gradients through the
-        # sg-plane state carries; texture-map gradients through the
-        # deferred composition below by plain AD (same coverage as the
-        # monolithic differentiable=True)
-        f = _prb_staged_fn(cfg, height, width, tile_rows, tile_cols,
-                           interpret, fast_quads, mesh_textured, sub_rows,
-                           splits, mesh_stream, reorder_key, None, use_oct,
-                           h_img)
-        outs = f(packs, cam, scalars, bn_stack, frame_counters,
-                 jnp.asarray(row_offset, jnp.int32))
-    else:
-        outs = _trace_staged(
-            packs, cam, scalars, bn_stack, frame_counters, cfg, height, width,
-            tile_rows, tile_cols, interpret, fast_quads, mesh_textured,
-            sub_rows, splits, mesh_stream, reorder_key, mesh_oct=use_oct,
-            img_height=h_img, row_offset=row_offset,
-        )
-    return _compose_result(outs, scene, cfg, mesh_textured)
+    return packs, cam, scalars
 
 
 def trace_image_pallas(
@@ -3192,15 +2082,12 @@ def trace_image_pallas(
     frame_counter,
     rand_vec2,
     blue_noise,
-    tile_rows: int = 32,
-    tile_cols: int = 256,
     interpret: bool = False,
     differentiable: bool = False,
-    mesh_sub_rows: int | None = None,
     fast_quads: bool | None = None,
-    reorder: bool = False,
-    reorder_splits: tuple | None = None,
-    reorder_key: str = "oct-morton",
+    block: tuple | None = None,
+    full_height: int | None = None,
+    row_offset=0,
 ):
     """Pallas forward of the Cornell-, quadric-, sky-, glTF- and HDRI-family
     radiance pass.
@@ -3208,16 +2095,26 @@ def trace_image_pallas(
     Returns the same RadianceResult as integrator.frame.trace_image (same
     RNG schedule, float-level parity).  Covers scenes built from quads +
     matrix-instanced unit spheres + the 12-shape transformed-quadric set +
-    one untextured BVH triangle mesh (walked in-loop by the escape-linked
-    packet traversal), with env 'none' + quad NEE (Cornell /
-    Transformed_Quadric_Geometry / GLTF_Model demos), env 'sky' + sun NEE
-    (Physical_Sky_Model: Preetham miss shading with the 5-case chain), or
-    env 'hdri' + sun NEE or env-CDF NEE (HDRI_Environment: the kernel defers
-    the equirect fetch by emitting miss-weight/direction planes — a path
-    misses at most once — and this wrapper composes
-    ``color += miss_w * Get_HDR_Color``; for nee='env' the inverse-CDF
-    samples are precomputed host-side from the same fixed-schedule draws,
-    see ``_env_nee_planes``).
+    one BVH triangle mesh (walked in-loop by the escape-linked BVH4 walk),
+    with env 'none' + quad NEE (Cornell / Transformed_Quadric_Geometry /
+    GLTF_Model demos), env 'sky' + sun NEE (Physical_Sky_Model: Preetham
+    miss shading with the 5-case chain), or env 'hdri' + sun NEE or env-CDF
+    NEE (HDRI_Environment: the kernel defers the equirect fetch by emitting
+    miss-weight/direction planes — a path misses at most once — and this
+    wrapper composes ``color += miss_w * Get_HDR_Color``; for nee='env' the
+    inverse-CDF samples are precomputed outside the kernel from the same
+    fixed-schedule draws, see ``_env_nee_planes``).
+
+    The kernel compiles for the GPU through Triton; ``interpret=True`` runs
+    it in the Pallas interpreter instead (any backend).  Without it, a
+    non-GPU backend raises.  ``block`` overrides the (rows, cols) pixel
+    block of one program (powers of two; default ``block_shape``).
+
+    Row sharding: ``full_height`` is the whole image's height and
+    ``row_offset`` (traced or static) the first absolute row of this call's
+    ``height`` rows — the RNG, NDC and draw planes are keyed by absolute
+    pixel coordinates, so shards of a ``shard_map`` reproduce the
+    unsharded image.
 
     With ``differentiable=True`` the call carries the fused path-replay
     custom_vjp: gradients flow to quad/sphere/quadric material colors (incl.
@@ -3232,79 +2129,42 @@ def trace_image_pallas(
     bilinear-texel-exact, decisions are per-triangle (the documented
     approximation; the wavefront path decides per texel).
     """
-    packs, cam, scalars, use_oct = _setup_inputs(scene, camera, cfg, width,
-                                                 height, frame_counter,
-                                                 want_oct=reorder)
-    bn_planes = _blue_noise_planes(jnp.asarray(blue_noise), height, width, jnp.asarray(rand_vec2))
+    interpret = use_interpreter(interpret)
+    img_height = height if full_height is None else full_height
+    packs, cam, scalars = _setup_inputs(scene, camera, cfg, width, img_height,
+                                        frame_counter, row_offset)
+    bn_planes = _blue_noise_planes(jnp.asarray(blue_noise), img_height, width,
+                                   jnp.asarray(rand_vec2))
     if cfg.nee == "env":
         bn_planes = jnp.concatenate(
-            [bn_planes, _env_nee_planes(scene, cfg, frame_counter, height, width)], axis=0
+            [bn_planes, _env_nee_planes(scene, cfg, frame_counter, img_height, width)],
+            axis=0,
         )
-    tile_rows = min(tile_rows, height)
-    tile_cols = min(tile_cols, width)
+    if img_height != height:
+        # draw planes are built for the FULL image and row-sliced, so a
+        # row shard consumes the draws of its absolute pixels
+        bn_planes = jax.lax.dynamic_slice_in_dim(bn_planes, row_offset, height, axis=1)
+    block = tuple(block) if block is not None else block_shape(height, width)
     if fast_quads is None:
         # NB: under jit tracing the vertices are tracers and this resolves
         # to False — callers with a concrete scene (attach_pallas_path,
         # bench) should decide once and pass fast_quads explicitly.
         fast_quads = _all_parallelograms(scene.quads)
     mesh_textured = scene.mesh is not None and scene.mesh.albedo is not None
-    # Packet granularity heuristic: big meshes diverge more than the
-    # whole-tile shared cursor tolerates — drop to (8, cols) sub-packets
-    # past ~8K triangles (teapot-class meshes stay whole-tile).
-    sub_rows = 0
-    if scene.mesh is not None and scene.mesh.fz_tris is not None:
-        if int(scene.mesh.fz_tris.shape[0]) > 2048:
-            sub_rows = 8
-    if mesh_sub_rows is not None:
-        sub_rows = mesh_sub_rows
-    if reorder:
-        # staged sorted-wavefront mode (single-frame pool): split the bounce
-        # loop into phases and reorder rays between them (Morton-of-origin +
-        # direction octant + dead-lane compaction).  Meshes whose dense pack
-        # exceeds the VMEM budget automatically switch to HBM leaf
-        # streaming, so reference-capacity scenes stay on the fused path.
-        splits = (tuple(reorder_splits) if reorder_splits is not None
-                  else tuple(range(1, cfg.bounces)))
-        mesh_stream = False
-        if scene.mesh is not None:
-            mesh_bytes = (packs[3][1].size + packs[3][2].size
-                          + (packs[3][3].size if packs[3][3] is not None else 0)) * 4
-            mesh_stream = mesh_bytes > 12 * 1024 * 1024
-        if differentiable:
-            f = _prb_staged_fn(cfg, height, width, tile_rows, tile_cols,
-                               interpret, fast_quads, mesh_textured, sub_rows,
-                               splits, mesh_stream, reorder_key,
-                               sub_rows if sub_rows else None, use_oct,
-                               height)
-            outs = f(packs, cam, scalars, bn_planes[:, None],
-                     jnp.asarray(frame_counter, jnp.float32)[None],
-                     jnp.asarray(0, jnp.int32))
-        else:
-            outs = _trace_staged(
-                packs, cam, scalars, bn_planes[:, None],
-                jnp.asarray(frame_counter, jnp.float32)[None], cfg, height,
-                width, tile_rows, tile_cols, interpret, fast_quads,
-                mesh_textured, sub_rows, splits, mesh_stream, reorder_key,
-                sub_rows_primary=sub_rows if sub_rows else None,
-                mesh_oct=use_oct,
-            )
-        outs = tuple(o[0] for o in outs)  # squeeze the F=1 axis
-    elif differentiable:
-        f = _prb_fn(cfg, height, width, tile_rows, tile_cols, interpret,
-                    fast_quads, mesh_textured, sub_rows, use_oct)
+    if differentiable:
+        f = _prb_fn(cfg, height, width, img_height, block, interpret,
+                    fast_quads, mesh_textured)
         outs = f(packs, cam, scalars, bn_planes)
     else:
         outs = _pallas_forward(
-            packs, cam, scalars, bn_planes, cfg, height, width, tile_rows, tile_cols, interpret,
-            fast_quads=fast_quads, mesh_textured=mesh_textured, sub_rows=sub_rows,
-            mesh_oct=use_oct,
+            packs, cam, scalars, bn_planes, cfg, height, width, img_height,
+            block, interpret, fast_quads=fast_quads, mesh_textured=mesh_textured,
         )
     return _compose_result(outs, scene, cfg, mesh_textured)
 
 
 def _compose_result(outs, scene, cfg, mesh_textured):
-    """Composition tail shared by every fused path (monolithic, staged,
-    multi-frame — planes may carry leading batch axes)."""
+    """Composition tail of the fused path: deferred env and texel fetches."""
     from bpt_tpu.integrator.radiance import RadianceResult
 
     (cr, cg, cb, onx, ony, onz, ocr, ocg, ocb, oid, osh) = outs[:11]
@@ -3333,10 +2193,8 @@ def _compose_result(outs, scene, cfg, mesh_textured):
         from bpt_tpu.textures import sample_mesh_tex
 
         if scene.mesh.emissive is not None:
-            em_w = jnp.stack(outs[n_base + 2 * cfg.bounces:
-                                  n_base + 2 * cfg.bounces + 3], axis=-1)
-            em_uv = jnp.stack(outs[n_base + 2 * cfg.bounces + 3:
-                                   n_base + 2 * cfg.bounces + 5], axis=-1)
+            em_w = jnp.stack(outs[n_base + 1:n_base + 4], axis=-1)
+            em_uv = jnp.stack(outs[n_base + 4:n_base + 6], axis=-1)
             emission = jnp.power(
                 jnp.maximum(sample_mesh_tex(scene.mesh.emissive,
                                             scene.mesh.emissive_q, em_uv), 0.0), 2.2
@@ -3344,8 +2202,8 @@ def _compose_result(outs, scene, cfg, mesh_textured):
             color = color + em_w * emission
         prod = jnp.ones_like(color)
         for b in range(cfg.bounces):
-            au = outs[n_base + 2 * b]
-            av = outs[n_base + 2 * b + 1]
+            au = outs[n_base][2 * b]
+            av = outs[n_base][2 * b + 1]
             has_f = (au >= 0.0)[..., None]
             alb = jnp.power(
                 jnp.maximum(

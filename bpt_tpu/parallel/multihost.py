@@ -1,7 +1,7 @@
 """Multi-host (pod-slice) scaffolding for the tile-sharded renderer.
 
-The BASELINE north star is a v5p-16 — multiple hosts, each with local
-chips, joined by ICI.  The workload's parallelism story (SURVEY.md §2.6)
+Several processes, each owning some devices (one process per card of a
+multi-GPU host, or several hosts).  The workload's parallelism story (SURVEY.md §2.6)
 is data-parallel over image tiles with replicated scene/BVH; gradients
 psum over the mesh.  Multi-host changes NOTHING about the math — the RNG
 is keyed by absolute pixel coordinates, so `Mesh(hosts x chips)` renders
@@ -11,8 +11,8 @@ the mesh is built and who holds which rows:
 * every process calls :func:`initialize` first (`jax.distributed`),
 * :func:`make_multihost_mesh` builds the mesh over the GLOBAL device list
   (optionally as a (hosts, chips) grid whose flattened order keeps each
-  host's rows contiguous — DP traffic stays on ICI; the only DCN traffic
-  is the tiny parameter-gradient psum),
+  host's rows contiguous — the only cross-host traffic is the tiny
+  parameter-gradient psum),
 * the sharded entry points in `bpt_tpu.parallel.sharding` work unchanged;
   each process computes and holds its local row shards.
 
@@ -35,8 +35,11 @@ def initialize(
 ) -> None:
     """`jax.distributed.initialize` wrapper (idempotent).
 
-    On TPU pods all arguments are auto-detected from the environment; on
-    CPU/GPU fleets pass them explicitly.  Must run before any computation.
+    Nothing in a single multi-GPU host's environment describes a cluster, so
+    pass the arguments explicitly: ``coordinator_address`` as
+    ``localhost:<free port>``, ``num_processes`` and this process's
+    ``process_id`` (one process can also drive every card of the host with
+    no initialize at all).  Must run before any computation.
     """
     if getattr(initialize, "_done", False):
         return

@@ -2,7 +2,7 @@
 
 The reference's entire parallel model is the GPU rasterizer's implicit
 per-pixel SPMD with zero inter-pixel communication during tracing
-(SURVEY.md §2.6).  The TPU-native equivalent: shard the image's row axis
+(SURVEY.md §2.6).  The multi-device equivalent: shard the image's row axis
 across devices with `shard_map`, replicate the scene/BVH (they are small
 relative to HBM), and keep each shard's RNG keyed by *absolute* pixel
 coordinates so `Mesh(1) ⊆ Mesh(N)` renders are bitwise-identical.

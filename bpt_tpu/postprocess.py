@@ -3,7 +3,7 @@
 Vectorized stencil re-implementation of the reference's final shader
 (/root/reference/js/PathTracingCommon.js:19-310).  The per-pixel gated
 neighbor sums become shifted-array selects over the whole image — a pure
-VPU-elementwise program on TPU, and the piece that needs halo exchange when
+elementwise program that XLA fuses, and the piece that needs halo exchange when
 the image is tile-sharded (see bpt_tpu.parallel).
 
 Border behavior: the GLSL texelFetch out-of-bounds result is undefined; we

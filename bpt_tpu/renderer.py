@@ -134,8 +134,8 @@ class ProgressiveRenderer:
         Samples are fused ``batch`` at a time into a single jitted
         `lax.scan` dispatch (the camera is static within `render`, so the
         per-sample FSM reduces to sample_counter += 1): one device round
-        trip per batch instead of per sample — on a remote/tunneled TPU the
-        per-dispatch latency otherwise dominates small frames.  Set
+        trip per batch instead of per sample — per-dispatch latency
+        otherwise dominates small frames.  Set
         ``batch=1`` to recover strict sample-at-a-time stepping.
         """
         self.state = init_state(self.height, self.width)

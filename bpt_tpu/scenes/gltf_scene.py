@@ -50,8 +50,8 @@ def bake_triangle_attrs(model: GLTFModel) -> np.ndarray:
 
     The reference decides the material branch per texel from the decoded
     metallicRoughness / emissive textures inside the bounce loop
-    (GLTFModelPathTracing_FragmentShader.js:434-462).  The TPU fused kernel
-    cannot gather per-lane texels mid-loop (Mosaic has no general gather),
+    (GLTFModelPathTracing_FragmentShader.js:434-462).  The fused kernel
+    does not fetch texels mid-loop (its texture reads are deferred to XLA),
     so the *decisions* are baked per triangle here — sampled at the three
     vertex UVs + the centroid, sRGB-decoded (pow 2.2), classified per tap
     with the shader's thresholds, and decided by tap MAJORITY — while the
@@ -333,20 +333,16 @@ def mesh_from_model(
         raise ValueError(f"unknown builder {builder!r} (sah|median)")
     m = trs_matrix(translation=translation, rotation=rotation, scale=scale)
 
-    from bpt_tpu.accel.cluster import pack_bvh4_oct, pack_clustered
+    from bpt_tpu.accel.cluster import pack_bvh4
 
-    pk = pack_clustered(
-        bvh, model.p0, model.p1, model.p2, model.n0, model.n1, model.n2,
-        model.uv0, model.uv1, model.uv2,
-    )
     tri_attr = bake_triangle_attrs(model) if model.albedo is not None else None
     if model.normal_map is not None:
         # fused pack gets normal-map-perturbed vertex normals (see
-        # _bake_vertex_normal_map); pk_/wavefront keep the exact per-texel path
+        # _bake_vertex_normal_map); the wavefront keeps the exact per-texel path
         fn0, fn1, fn2 = _bake_vertex_normal_map(model)
     else:
         fn0, fn1, fn2 = model.n0, model.n1, model.n2
-    fz = pack_bvh4_oct(
+    fz = pack_bvh4(
         bvh, model.p0, model.p1, model.p2, fn0, fn1, fn2,
         model.uv0, model.uv1, model.uv2, leaf_size=leaf_size,
         tri_attr=tri_attr,
@@ -361,14 +357,8 @@ def mesh_from_model(
         return None if a is None else quad_pack(a)
 
     return TriangleMesh(
-        pk_nodes_f=jnp.asarray(pk.nodes_f),
-        pk_nodes_i=jnp.asarray(pk.nodes_i),
-        pk_tris=jnp.asarray(pk.tris),
-        pk_order=jnp.asarray(pk.tri_order),
         fz_nodes_f=jnp.asarray(fz.nodes_f),
         fz_tris=jnp.asarray(fz.tris),
-        fz_nodes_oct=jnp.asarray(fz.nodes_oct),
-        fz_woop=jnp.asarray(fz.woop),
         p0=jnp.asarray(model.p0),
         p1=jnp.asarray(model.p1),
         p2=jnp.asarray(model.p2),

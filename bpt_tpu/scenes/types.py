@@ -119,30 +119,13 @@ class TriangleMesh(NamedTuple):
     normal_map: Optional[jnp.ndarray] = None
     metallic_roughness: Optional[jnp.ndarray] = None
     emissive: Optional[jnp.ndarray] = None
-    # Clusterized preorder escape-linked BVH for the Pallas packet-traversal
-    # kernel (bpt_tpu.accel.cluster / bpt_tpu.kernels.traverse); None falls
-    # back to the XLA wavefront walk.
-    pk_nodes_f: Optional[jnp.ndarray] = None  # (Np, 8) f32
-    pk_nodes_i: Optional[jnp.ndarray] = None  # (Np, 4) i32
-    pk_tris: Optional[jnp.ndarray] = None  # (Tp, 32) f32 reordered records
-    pk_order: Optional[jnp.ndarray] = None  # (T,) i32 reordered -> original id
-    # Lane-dense escape-linked pack for the fused Pallas megakernel's in-loop
-    # walk (bpt_tpu.accel.cluster.pack_clustered_dense): 4 triangle records
-    # per 128-lane row, leaf ranges row-aligned.  None -> megakernel refuses
-    # the scene and the renderer stays on the wavefront path.
-    fz_nodes_f: Optional[jnp.ndarray] = None  # (Np, 16) f32: aabb + links
-    fz_tris: Optional[jnp.ndarray] = None  # (Rp, 128) f32
-    # Eight near-first escape-link orderings of the same collapsed tree
-    # (accel.cluster.pack_clustered_dense_oct): direction-sorted packets
-    # walk the layout matching their octant so t_best tightens front-to-back
-    # — the occlusion-pruning analog of the reference's nearest-child-first
-    # stack traversal (GLTFModelPathTracing_FragmentShader.js:254-284).
-    fz_nodes_oct: Optional[jnp.ndarray] = None  # (8*Np, 16) f32
-    # Woop leaf-test rows for the BVH4 walk (accel.cluster.Bvh4OctBVH.woop):
-    # 8 affine unit-triangle transforms per 128-float row; the dense fz_tris
-    # rows 2w, 2w+1 hold woop row w's interpolation data ('interp on
-    # improve').  None -> the walker falls back to in-row Moller-Trumbore.
-    fz_woop: Optional[jnp.ndarray] = None  # (Rp/2, 128) f32
+    # Escape-linked BVH4 pack for the fused megakernel's in-loop walk
+    # (bpt_tpu.accel.cluster.pack_bvh4): 32-float inner-node records with
+    # four child boxes and inlined leaves; 4 triangle records per 128-float
+    # row.  None -> the fused path refuses the scene (the wavefront walks
+    # the flat BVH above).
+    fz_nodes_f: Optional[jnp.ndarray] = None  # (N4, 32) f32
+    fz_tris: Optional[jnp.ndarray] = None  # (R, 128) f32
     # Quad-packed (H, W, 12) twins of the PBR maps (textures.quad_pack):
     # one gather per bilinear sample instead of four — the sampling paths
     # prefer these when present (results are bit-equal).

@@ -39,9 +39,9 @@ def quad_pack(tex) -> jnp.ndarray:
     tex[y, x+1], tex[y+1, x], tex[y+1, x+1]) with REPEAT wrap, giving a
     (H, W, 4C) table where ONE row fetch yields all four bilinear taps.
 
-    Why: XLA's TPU gather issues ~15 cycles *per row* regardless of row
-    width, so fetching the 4 taps of a bilinear sample as 4 gathers wastes
-    4x the issue rate.  4x memory for 4x fewer gathers — the TPU trade.
+    Why: one gather of a 4C-wide row replaces four gathers of C-wide rows
+    (4x memory for 4x fewer gathers); whether that pays on the GPU is not
+    measured yet.
 
     jnp ops throughout, so packing is differentiable: optimizing a texture
     (inverse rendering) can re-pack per step and gradients flow back

@@ -107,26 +107,3 @@ def test_batched_render_equals_per_sample_stepping():
     assert float(r1.state.sample_counter) == float(r2.state.sample_counter) == 7.0
     np.testing.assert_array_equal(np.asarray(r1.state.accum), np.asarray(r2.state.accum))
     np.testing.assert_array_equal(img1, img2)
-
-
-def test_reorder_attach_batched_render_matches_plain_pallas():
-    """attach_pallas_path(reorder=True) routes the batched sample loop
-    through the staged multi-frame lane pool; the progressive render must
-    equal the plain Pallas attach bit-for-bit (per-lane math keyed by
-    (frame, pixel), accumulation replayed per frame)."""
-    import numpy as np
-
-    from bpt_tpu.kernels.integration import attach_pallas_path
-    from bpt_tpu.renderer import ProgressiveRenderer
-    from bpt_tpu.scenes.cornell import cornell_camera, cornell_scene
-
-    scene, cam = cornell_scene(), cornell_camera()
-    cfg = IntegratorConfig(bounces=2)
-    r1 = ProgressiveRenderer(scene, cfg, 32, 128, seed=7)
-    attach_pallas_path(r1, tile_rows=32, tile_cols=128)
-    r2 = ProgressiveRenderer(scene, cfg, 32, 128, seed=7)
-    attach_pallas_path(r2, tile_rows=32, tile_cols=128, reorder=True)
-    img1 = np.asarray(r1.render(cam, spp=5, batch=2))
-    img2 = np.asarray(r2.render(cam, spp=5, batch=2))
-    assert float(r2.state.sample_counter) == 5.0
-    np.testing.assert_array_equal(img1, img2)

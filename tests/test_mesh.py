@@ -136,49 +136,29 @@ def test_describe_gltf_and_forced_material_index():
     assert forced.triangle_count == default.triangle_count == 4304
 
 
-def test_packet_traversal_matches_wavefront_with_node_padding():
-    """Packet kernel (interpret mode) == XLA wavefront walk, on a tree whose
-    clusterized node count is NOT a multiple of 8 — regression for the pad
-    rows' self-looping escape link (a real-TPU watchdog kill)."""
-    from bpt_tpu.accel.cluster import pack_clustered
-    from bpt_tpu.kernels.traverse import packet_closest_hit
+def test_bvh4_pack_covers_every_triangle_once():
+    """pack_bvh4: every triangle sits in exactly one inlined leaf, every
+    leaf owns whole rows inside the table, and every escape link points
+    forward."""
+    from bpt_tpu.accel.cluster import pack_bvh4
 
-    found = None
-    for n in (96, 128, 160, 224, 256):
-        p0, p1, p2 = random_soup(n, seed=11)
-        mn, mx, _ = triangle_aabbs(p0, p1, p2)
-        bvh = build_bvh(mn, mx)
-        z2 = np.zeros((n, 2), np.float32)
-        z3 = np.zeros((n, 3), np.float32)
-        pk = pack_clustered(bvh, p0, p1, p2, z3, z3, z3, z2, z2, z2, leaf_size=4)
-        if pk.n_nodes % 8 != 0:
-            found = (p0, p1, p2, bvh, pk)
-            break
-    assert found is not None, "no soup produced a non-multiple-of-8 node count"
-    p0, p1, p2, bvh, pk = found
-    assert (np.asarray(pk.nodes_i[pk.n_nodes:, 0]) == pk.nodes_f.shape[0]).all()
-
-    rng = np.random.default_rng(5)
-    h = w = 32  # one packet block
-    ro = jnp.asarray(rng.uniform(-20, 20, (h, w, 3)), jnp.float32)
-    rd = normalize(jnp.asarray(rng.normal(size=(h, w, 3)), jnp.float32))
-    t_pk, n_pk, u_pk, v_pk, tri_pk = packet_closest_hit(
-        ro, rd, jnp.asarray(0.0), jnp.ones(ro.shape[:2], jnp.float32),
-        (jnp.asarray(pk.nodes_f), jnp.asarray(pk.nodes_i), jnp.asarray(pk.tris)),
-        int(pk.nodes_f.shape[0]), True,
-    )
-    t_wf, tri_wf, _, _ = traverse_bvh(
-        jnp.asarray(bvh.node_tri), jnp.asarray(bvh.node_right),
-        jnp.asarray(bvh.node_min), jnp.asarray(bvh.node_max),
-        jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(p2),
-        ro, rd, jnp.asarray(False), 28,
-    )
-    hit_pk = np.asarray(tri_pk) >= 0
-    hit_wf = np.asarray(tri_wf) >= 0
-    np.testing.assert_array_equal(hit_pk, hit_wf)
-    np.testing.assert_allclose(
-        np.asarray(t_pk)[hit_pk], np.asarray(t_wf)[hit_wf], rtol=1e-5
-    )
+    n = 300
+    p0, p1, p2 = random_soup(n, seed=11)
+    mn, mx, _ = triangle_aabbs(p0, p1, p2)
+    z2 = np.zeros((n, 2), np.float32)
+    z3 = np.zeros((n, 3), np.float32)
+    pk = pack_bvh4(build_bvh(mn, mx), p0, p1, p2, z3, z3, z3, z2, z2, z2, leaf_size=16)
+    order = np.asarray(pk.tri_order)
+    assert sorted(order[order >= 0].tolist()) == list(range(n))
+    nodes = np.asarray(pk.nodes_f)
+    assert nodes.shape == (pk.n_nodes, 32)
+    esc = nodes[:, 28].astype(int)
+    assert (esc > np.arange(pk.n_nodes)).all() and (esc <= pk.n_nodes).all()
+    meta = nodes[:, 24:28]
+    leaves = (-meta[meta < 0]).astype(int)
+    row0, nrows = leaves // 32, leaves % 32
+    assert (nrows > 0).all() and (row0 + nrows <= pk.n_rows).all()
+    assert pk.tris.shape == (pk.n_rows, 128) and len(order) == 4 * pk.n_rows
 
 
 def test_perturb_normal_identity_and_tilt():
@@ -264,120 +244,32 @@ def test_normal_map_changes_mesh_shading_normal():
     assert (dev > 1e-3).mean() > 0.8, dev
 
 
-def _grid_mesh(n_side):
-    """n_side^2 * 2 triangles forming a bumpy height field (reference-scale
-    capacity fixture; capacity per GLTF_Model_Path_Tracing.js:291-295)."""
-    xs = np.linspace(-50, 50, n_side + 1)
-    zs = np.linspace(-50, 50, n_side + 1)
-    X, Z = np.meshgrid(xs, zs, indexing="ij")
-    Y = 3.0 * np.sin(X * 0.4) * np.cos(Z * 0.3)
-    P = np.stack([X, Y, Z], -1).astype(np.float32)
-    a = P[:-1, :-1].reshape(-1, 3)
-    b = P[1:, :-1].reshape(-1, 3)
-    c = P[1:, 1:].reshape(-1, 3)
-    d = P[:-1, 1:].reshape(-1, 3)
-    p0 = np.concatenate([a, a])
-    p1 = np.concatenate([c, d])
-    p2 = np.concatenate([b, c])
-    return p0, p1, p2
-
-
-def test_packet_kernel_at_reference_scale_300k():
-    """The packet-traversal path handles a >=300K-triangle mesh (the
-    reference's 2048^2 data textures cap at 524,288 tris) — build, pack,
-    walk, and spot-verify closest hits against brute force."""
-    from bpt_tpu.accel.cluster import pack_clustered
+def test_xla_walk_matches_brute_force_on_heightfield():
+    """The XLA wavefront walk on a seed heightfield (a 32,768-triangle subset
+    of the 524,288-triangle capacity mesh's construction) returns the
+    brute-force closest hit for every lane."""
     from bpt_tpu.geometry.triangles import bvh_triangle_intersect
-    from bpt_tpu.kernels.traverse import packet_closest_hit
+    from bpt_tpu.scenes.synthetic import heightfield_model
 
-    p0, p1, p2 = _grid_mesh(388)  # 301,088 triangles
-    T = len(p0)
-    assert T >= 300_000
+    m = heightfield_model(n_side=128, rugged=True)
+    p0, p1, p2 = m.p0, m.p1, m.p2
     mn, mx, _ = triangle_aabbs(p0, p1, p2)
     bvh = build_bvh(mn, mx)
-    z2 = np.zeros((T, 2), np.float32)
-    z3 = np.zeros((T, 3), np.float32)
-    pk = pack_clustered(bvh, p0, p1, p2, z3, z3, z3, z2, z2, z2, leaf_size=16)
-
     rng = np.random.default_rng(5)
-    h = w = 32
-    ro = jnp.asarray(np.stack(np.broadcast_arrays(
-        rng.uniform(-40, 40, (h, w)).astype(np.float32), 60.0,
-        rng.uniform(-40, 40, (h, w)).astype(np.float32)), -1))
-    rd = normalize(jnp.asarray(np.stack(
-        [rng.normal(0, 0.05, (h, w)), -np.ones((h, w)),
-         rng.normal(0, 0.05, (h, w))], -1).astype(np.float32)))
-    t_pk, _, _, _, tri_pk = packet_closest_hit(
-        ro, rd, jnp.asarray(0.0), jnp.ones(ro.shape[:2], jnp.float32),
-        (jnp.asarray(pk.nodes_f), jnp.asarray(pk.nodes_i), jnp.asarray(pk.tris)),
-        int(pk.nodes_f.shape[0]), True)
-    assert (np.asarray(tri_pk) >= 0).all()  # downward rays all hit the field
-    for (i, j) in ((0, 0), (7, 13), (21, 30), (31, 31)):
-        tvals, _, _ = bvh_triangle_intersect(
-            jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(p2),
-            ro[i, j], rd[i, j], True)
-        np.testing.assert_allclose(float(t_pk[i, j]), float(jnp.min(tvals)), rtol=1e-5)
-
-
-def test_fused_kernel_refuses_oversized_mesh():
-    """The fused path's VMEM budget check fails loudly (not deep inside
-    Mosaic) for meshes whose dense pack cannot be VMEM-resident."""
-    from bpt_tpu.integrator import IntegratorConfig
-    from bpt_tpu.io.gltf import GLTFModel
-    from bpt_tpu.kernels.megakernel import trace_image_pallas
-    from bpt_tpu.scenes.cornell import cornell_camera
-    from bpt_tpu.scenes.gltf_scene import gltf_scene, mesh_from_model
-
-    p0, p1, p2 = _grid_mesh(256)  # 131,072 tris -> dense pack > 12 MB
-    n = np.tile(np.array([0, 1, 0], np.float32), (len(p0), 3, 1))
-    z2 = np.zeros((len(p0), 2), np.float32)
-    model = GLTFModel(p0=p0, p1=p1, p2=p2, n0=n[:, 0], n1=n[:, 1], n2=n[:, 2],
-                      uv0=z2, uv1=z2, uv2=z2, albedo=None, normal_map=None,
-                      metallic_roughness=None, emissive=None)
-    scene = gltf_scene(mesh_from_model(model, mat_type=1))
-    from bpt_tpu.core.rng import blue_noise_table
-
-    bn = jnp.asarray(blue_noise_table())
-    with pytest.raises(ValueError, match="VMEM budget"):
-        trace_image_pallas(scene, cornell_camera(), IntegratorConfig(bounces=2),
-                           128, 32, 2.0, jnp.asarray([0.3, 0.7]), bn,
-                           tile_rows=32, tile_cols=128, interpret=True)
-
-
-def test_hbm_streaming_walk_matches_packet_walk():
-    """The HBM-streaming leaf-DMA walk (reference-capacity path) returns the
-    same closest hits as the VMEM-resident packet kernel."""
-    from bpt_tpu.accel.cluster import pack_clustered, pack_clustered_dense
-    from bpt_tpu.kernels.traverse import hbm_closest_hit, packet_closest_hit
-
-    n = 300
-    p0, p1, p2 = random_soup(n, seed=3)
-    mn, mx, _ = triangle_aabbs(p0, p1, p2)
-    bvh = build_bvh(mn, mx)
-    z2 = np.zeros((n, 2), np.float32)
-    z3 = np.zeros((n, 3), np.float32)
-    pk = pack_clustered(bvh, p0, p1, p2, z3, z3, z3, z2, z2, z2, leaf_size=16)
-    fz = pack_clustered_dense(bvh, p0, p1, p2, z3, z3, z3, z2, z2, z2, leaf_size=16)
-
-    rng = np.random.default_rng(9)
-    h = w = 32
-    ro = jnp.asarray(rng.uniform(-20, 20, (h, w, 3)), jnp.float32)
-    rd = normalize(jnp.asarray(rng.normal(size=(h, w, 3)), jnp.float32))
-    t_pk, _, u_pk, v_pk, tri_pk = packet_closest_hit(
-        ro, rd, jnp.asarray(0.0), jnp.ones(ro.shape[:2], jnp.float32),
-        (jnp.asarray(pk.nodes_f), jnp.asarray(pk.nodes_i), jnp.asarray(pk.tris)),
-        int(pk.nodes_f.shape[0]), True)
-    t_hb, _, u_hb, v_hb, slot = hbm_closest_hit(
-        ro, rd, jnp.asarray(0.0), jnp.ones(ro.shape[:2], jnp.float32),
-        jnp.asarray(fz.nodes_f), jnp.asarray(fz.tris),
-        True)
-    hit_pk = np.asarray(tri_pk) >= 0
-    hit_hb = np.asarray(slot) >= 0
-    np.testing.assert_array_equal(hit_pk, hit_hb)
-    np.testing.assert_allclose(
-        np.asarray(t_hb)[hit_hb], np.asarray(t_pk)[hit_pk], rtol=1e-5)
-    # slot ids map back to the same original triangles
-    order = np.asarray(fz.tri_order)
-    pk_order = np.asarray(pk.tri_order)
-    np.testing.assert_array_equal(
-        order[np.asarray(slot)[hit_hb]], pk_order[np.asarray(tri_pk)[hit_pk]])
+    n = 96
+    ro = jnp.asarray(np.stack([rng.uniform(-30, 30, n), np.full(n, 40.0),
+                               rng.uniform(-30, 30, n)], -1), jnp.float32)
+    rd = normalize(jnp.asarray(np.stack([rng.normal(0, 0.1, n), -np.ones(n),
+                                         rng.normal(0, 0.1, n)], -1), jnp.float32))
+    t, tri, _, _ = traverse_bvh(
+        jnp.asarray(bvh.node_tri), jnp.asarray(bvh.node_right),
+        jnp.asarray(bvh.node_min), jnp.asarray(bvh.node_max),
+        jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(p2),
+        ro, rd, jnp.asarray(False), 28,
+    )
+    assert (np.asarray(tri) >= 0).all()  # downward rays all hit the field
+    tb, _, _ = bvh_triangle_intersect(
+        jnp.asarray(p0), jnp.asarray(p1), jnp.asarray(p2),
+        ro[:, None, :], rd[:, None, :], double_sided=True,
+    )
+    np.testing.assert_allclose(np.asarray(t), np.asarray(tb).min(axis=1), rtol=1e-5)

@@ -73,15 +73,14 @@ def test_sharded_gradient_psum(setup):
 
 
 def test_pallas_megakernel_under_shard_map():
-    """The fused Pallas path (staged sorted-wavefront, interpret mode) runs
-    under shard_map on a 4-device row-sharded mesh and reproduces the
-    unsharded fused render exactly — per-lane math is keyed by the absolute
-    (frame, pixel) identity carried in the state, so row sharding (like any
-    other lane regrouping) cannot change any lane's result."""
+    """The fused Pallas kernel (interpret mode) runs under shard_map on a
+    4-device row-sharded mesh through its full_height/row_offset seam and
+    reproduces the unsharded fused render exactly — per-lane math is keyed
+    by the absolute pixel, so row sharding cannot change any lane's result."""
     from jax.sharding import PartitionSpec as P
 
     from bpt_tpu.integrator.radiance import RadianceResult
-    from bpt_tpu.kernels.megakernel import trace_frames_pallas, trace_image_pallas
+    from bpt_tpu.kernels.megakernel import trace_image_pallas
     from test_kernels import _textured_mesh
     from bpt_tpu.scenes.gltf_scene import gltf_camera, gltf_scene
 
@@ -89,20 +88,15 @@ def test_pallas_megakernel_under_shard_map():
     cfg = IntegratorConfig(bounces=2, metal_roughness_lobe=True)
     cam = gltf_camera()
     h, w = 32, 128
-    ref = trace_image_pallas(scene, cam, cfg, w, h, 2.0, RV, BN,
-                             tile_rows=32, tile_cols=128, interpret=True)
+    ref = trace_image_pallas(scene, cam, cfg, w, h, 2.0, RV, BN, interpret=True)
     n = 4
     mesh = make_mesh(jax.devices()[:n])
-    tile_rows = h // n
+    shard_rows = h // n
 
     def tile_fn(scene, camera, rv, bnt):
-        row0 = jax.lax.axis_index("tiles") * tile_rows
-        r = trace_frames_pallas(
-            scene, camera, cfg, w, tile_rows, jnp.asarray([2.0]), rv[None],
-            bnt, tile_rows=8, tile_cols=128, interpret=True,
-            full_height=h, row_offset=row0,
-        )
-        return jax.tree.map(lambda x: x[0], r)  # squeeze the F=1 axis
+        row0 = jax.lax.axis_index("tiles") * shard_rows
+        return trace_image_pallas(scene, camera, cfg, w, shard_rows, 2.0, rv, bnt,
+                                  interpret=True, full_height=h, row_offset=row0)
 
     fn = jax.jit(jax.shard_map(
         tile_fn, mesh=mesh,
@@ -124,25 +118,52 @@ def test_pallas_megakernel_under_shard_map():
                                   np.asarray(ref.object_id))
 
 
-def test_staged_hbm_stream_matches_monolithic():
-    """The staged path's in-kernel HBM leaf streaming (double-buffered DMA,
-    interpret mode) returns the same image as the VMEM-resident monolithic
-    walk — the reference-capacity mechanism, exercised at test scale via
-    the mesh_stream override."""
-    from bpt_tpu.kernels.megakernel import trace_frames_pallas, trace_image_pallas
-    from test_kernels import _textured_mesh
-    from bpt_tpu.scenes.gltf_scene import gltf_camera, gltf_scene
+def test_fused_vjp_gradient_psum_under_shard_map():
+    """The fused path-replay VJP under a row-sharded shard_map (scene
+    replicated, dynamic row_offset): AD psums the light-emission and
+    albedo-map gradients to the single-device values."""
+    from jax.sharding import PartitionSpec as P
 
-    scene = gltf_scene(_textured_mesh((0.0, 0.3, 0.8)))
+    from bpt_tpu.kernels.megakernel import trace_image_pallas
+    from bpt_tpu.scenes.gltf_scene import gltf_camera, gltf_scene, mesh_from_model
+    from bpt_tpu.scenes.synthetic import textured_blob_model
+    from bpt_tpu.textures import quad_pack
+
+    scene = gltf_scene(mesh_from_model(textured_blob_model(), mat_type=1))
     cfg = IntegratorConfig(bounces=2, metal_roughness_lobe=True)
     cam = gltf_camera()
-    h, w = 32, 128
-    ref = trace_image_pallas(scene, cam, cfg, w, h, 2.0, RV, BN,
-                             tile_rows=32, tile_cols=128, interpret=True)
-    out = trace_frames_pallas(scene, cam, cfg, w, h, jnp.asarray([2.0]),
-                              RV[None], BN, tile_rows=32, tile_cols=128,
-                              interpret=True, mesh_stream=True)
-    np.testing.assert_array_equal(np.asarray(out.color[0]), np.asarray(ref.color))
+    h, w = 16, 32
+    n = 4
+    mesh = make_mesh(jax.devices()[:n])
+    shard_rows = h // n
+
+    def with_params(s, albedo, light):
+        m = s.mesh._replace(albedo=albedo, albedo_q=quad_pack(albedo))
+        q = s.quads._replace(color=s.quads.color.at[-1].set(light))
+        return s._replace(mesh=m, quads=q)
+
+    def loss_single(albedo, light):
+        r = trace_image_pallas(with_params(scene, albedo, light), cam, cfg, w, h, 2.0,
+                               RV, BN, interpret=True, differentiable=True)
+        return jnp.mean(r.color)
+
+    def loss_sharded(albedo, light):
+        def tile(albedo, light, s, camera, rv, bnt):
+            row0 = jax.lax.axis_index("tiles") * shard_rows
+            r = trace_image_pallas(with_params(s, albedo, light), camera, cfg, w,
+                                   shard_rows, 2.0, rv, bnt, interpret=True,
+                                   differentiable=True, full_height=h, row_offset=row0)
+            return jax.lax.psum(jnp.mean(r.color), "tiles") / n
+
+        return jax.shard_map(tile, mesh=mesh, in_specs=(P(),) * 6, out_specs=P(),
+                             check_vma=False)(albedo, light, scene, cam, RV, BN)
+
+    args = (scene.mesh.albedo, scene.quads.color[-1])
+    g1 = jax.jit(jax.grad(loss_single, argnums=(0, 1)))(*args)
+    g4 = jax.jit(jax.grad(loss_sharded, argnums=(0, 1)))(*args)
+    assert float(jnp.abs(g1[0]).sum()) > 0 and float(jnp.abs(g1[1]).sum()) > 0
+    for a, b in zip(g4, g1):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-7)
 
 
 def test_sharded_denoiser_halo_exchange(setup):
